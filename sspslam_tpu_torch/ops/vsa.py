@@ -1,0 +1,127 @@
+"""Vector-symbolic-algebra primitives on torch tensors.
+
+Port of the parts of :mod:`sspslam_tpu.ops.vsa` that path integration and
+SSP construction use: the real half-spectrum DFT matrices, SSP encoding,
+the conjugate-symmetric phase expansion and the SSP <-> VCO-triple Fourier
+layouts.  The DFT stays a matmul, as in the JAX package, so both packages
+hold the same float32 matrices bitwise; ``torch.fft`` is a later
+measurement, not a given.
+
+Conventions are those of the JAX module: ``phase_matrix`` is a
+(ssp_dim, domain_dim) conjugate-symmetric matrix, and every function treats
+the LAST axis as the vector axis and broadcasts over leading axes.
+"""
+
+from __future__ import annotations
+
+from functools import lru_cache
+
+import numpy as np
+import torch
+
+__all__ = ["encode", "rfft_pair", "irfft_pair", "conjsym",
+           "to_fourier_matrix", "from_fourier_matrix"]
+
+
+@lru_cache(maxsize=64)
+def _rdft_mats_np(d: int):
+    h = d // 2 + 1
+    ang = 2.0 * np.pi * np.outer(np.arange(h), np.arange(d)) / d
+    W_re = np.cos(ang)
+    W_im = -np.sin(ang)
+    coef = np.full(h, 2.0)
+    coef[0] = 1.0
+    if d % 2 == 0:
+        coef[-1] = 1.0
+    M_c = (coef[None, :] * np.cos(ang).T) / d
+    M_s = -(coef[None, :] * np.sin(ang).T) / d
+    return W_re, W_im, M_c, M_s
+
+
+def _rdft_mats(d: int, device="cpu", dtype=torch.float32):
+    """(W_re, W_im, M_c, M_s) as tensors on ``device``:
+    forward:  Z_j = (W_re @ x)_j + i (W_im @ x)_j   for j in [0, d//2]
+    inverse:  x = M_c @ Re(Z) + M_s @ Im(Z)          (conj-symmetric Z)
+    """
+    return tuple(torch.as_tensor(m, dtype=dtype, device=device)
+                 for m in _rdft_mats_np(d))
+
+
+def rfft_pair(v: torch.Tensor):
+    """(Re, Im) of the half-spectrum DFT of a real vector, shapes (..., h)."""
+    W_re, W_im, _, _ = _rdft_mats(v.shape[-1], v.device, v.dtype)
+    return (torch.einsum("hd,...d->...h", W_re, v),
+            torch.einsum("hd,...d->...h", W_im, v))
+
+
+def irfft_pair(re: torch.Tensor, im: torch.Tensor, d: int) -> torch.Tensor:
+    """Real inverse DFT from half-spectrum (Re, Im) parts."""
+    _, _, M_c, M_s = _rdft_mats(d, re.device, re.dtype)
+    return (torch.einsum("dh,...h->...d", M_c, re)
+            + torch.einsum("dh,...h->...d", M_s, im))
+
+
+def encode(phase_matrix, x: torch.Tensor, length_scale) -> torch.Tensor:
+    """SSP encoding ``IDFT(exp(i A x / l))`` of points ``x`` (..., n) in
+    real arithmetic: cos/sin of the half-spectrum phases, then the
+    inverse-DFT matmul.  Returns (..., d) on ``x``'s device and dtype."""
+    A = torch.as_tensor(np.asarray(phase_matrix), dtype=x.dtype,
+                        device=x.device)
+    d = A.shape[0]
+    ls = torch.as_tensor(np.asarray(length_scale, dtype=np.float64).ravel(),
+                         dtype=x.dtype, device=x.device)
+    ls = torch.broadcast_to(ls, x.shape[-1:])
+    phases = torch.einsum("hn,...n->...h", A[:d // 2 + 1], x / ls)
+    return irfft_pair(torch.cos(phases), torch.sin(phases), d)
+
+
+def conjsym(K: np.ndarray) -> np.ndarray:
+    """Expand (m, n) free phases into a (2m+1, n) conjugate-symmetric phase
+    matrix: row 0 zero, rows 1..m = K, rows m+1..2m = -flip(K)."""
+    K = np.atleast_2d(np.asarray(K, dtype=np.float64))
+    m, n = K.shape
+    F = np.zeros((2 * m + 1, n))
+    F[1 : m + 1] = K
+    F[m + 1 :] = -np.flip(K, axis=0)
+    return F
+
+
+# The path integrator represents the SSP in the Fourier domain as
+# k = (d+1)//2 triples [Re F_j, Im F_j, omega_j] (one per VCO).
+
+def to_fourier_matrix(d: int) -> np.ndarray:
+    """(3k, d) matrix: SSP -> [Re F_1..k-1, Im F_1..k-1] in VCO triple layout.
+
+    VCO j (j>=1) rows 3j, 3j+1 get Re/Im of DFT row j; VCO 0 (the DC term)
+    rows are zero — it is pinned to [1, 0, 0] by a constant input instead.
+    Frequency rows (3j+2) are zero: omega comes from the velocity input.
+    """
+    k = (d + 1) // 2
+    W = np.fft.fft(np.eye(d))
+    M = np.zeros((3 * k, d))
+    M[3::3] = W[1:k].real
+    M[4::3] = W[1:k].imag
+    return M
+
+
+def from_fourier_matrix(d: int) -> np.ndarray:
+    """(d, 3k) matrix: stacked VCO triples -> SSP.
+
+    Reconstructs x = Re(IFFT(F)) with F_0 taken from VCO 0's Re component,
+    F_j from VCO j, and the upper half of the spectrum by conjugate symmetry.
+    For even d the Nyquist row F_{d/2} is not represented by any VCO and is
+    dropped.
+    """
+    k = (d + 1) // 2
+    invW = np.fft.ifft(np.eye(d))  # (d, d) complex, x = invW @ F
+    M = np.zeros((d, 3 * k))
+    for j in range(k):
+        # F_j = Re + i Im ; F_{d-j} = Re - i Im (conjugate symmetry), j>0
+        col_re = invW[:, j].copy()
+        col_im = 1j * invW[:, j]
+        if j > 0 and (d - j) != j:
+            col_re = col_re + invW[:, d - j]
+            col_im = col_im - 1j * invW[:, d - j]
+        M[:, 3 * j] = col_re.real
+        M[:, 3 * j + 1] = col_im.real
+    return M
