@@ -11,62 +11,164 @@ result line):
 1. device: the card's name and power limit; TF32 off for matmuls and
    convolutions, so float32 comparisons are float32;
 2. build: compiles ``sspslam_tpu_torch/csrc/vco_scan.cu`` for sm_90a;
-3. kernel check: at the path integrator's full width (ssp_dim 97 -> k = 49
-   oscillators, 800 LIF neurons each) the VCO-bank kernel against its plain
-   PyTorch version on the same params and inputs: 40 steps to max-abs
-   <= 2e-4, then a 2,000-step chunk and the main path's first 10,000-step
-   chunk to median |diff| <= 2e-3 (single spike flips grow with the step
-   count, so the long chunks bound the median); then 40 steps at 48, 300
-   and 2,000 neurons per oscillator, which run the kernel's other
-   neurons-per-thread variants;
-4. main path: ``FastPathIntegrator`` driven with ``bench.py --model
+3. kernel check, for every cluster size C the kernel is built for (CTAs
+   per oscillator): at the path integrator's full width (ssp_dim 97 ->
+   k = 49 oscillators, 800 LIF neurons each) the VCO-bank kernel against
+   its plain PyTorch version on the same params and inputs: 40 steps to
+   max-abs <= 2e-4, then a 2,000-step chunk and the main path's first
+   10,000-step chunk to median |diff| <= 2e-3 (single spike flips grow
+   with the step count, so the long chunks bound the median); then 40
+   steps at 48, 300 and 2,000 neurons per oscillator, which run the
+   kernel's other neurons-per-thread variants.  The plain version's run
+   of the main path's first chunk also counts its spikes, which set the
+   kernel's bound (``bound_ms``);
+4. cluster sweep: the kernel's time per 10,000-step chunk for each C in
+   turns (1, 4, 4, 1) at full width, at 32 neurons per oscillator (the
+   per-step floor: exchange and barrier latency with almost no neuron
+   work), at the 3-D configurations of ``experiments/scaled_slam.py``
+   (ssp_dim 201 and 801 -> k = 101 and 401, 800 LIF each) and at the
+   first k oscillators of those builds for k on either side of the edges
+   that ``_cluster_size`` and the waves of resident clusters set, each
+   first held to the plain version over 40 steps; the card's clocks and
+   power are sampled over the sweep;
+5. main path: ``FastPathIntegrator`` driven with ``bench.py --model
    pi-fast``'s traffic (one 10,000-step warm-up chunk, then 50,000 timed
-   steps); the kernel's launch count over that run must be > 0, and the
-   warm-up chunk's trace must agree with the plain version's trace of the
-   same chunk (median |diff| <= 2e-3);
-5. accuracy: the constant-velocity integration test at full width (decode
+   steps) at the C the wrapper picks, with the card's clocks and power
+   read just before and just after the timed window; the kernel's launch
+   count over that run must be > 0, and the warm-up chunk's trace must
+   equal the direct launch of phase 3 and agree with the plain version's
+   trace of the same chunk (median |diff| <= 2e-3);
+6. whole run: the same 60,000 steps through the kernel at the other C; at
+   every chunk end the two decoded positions must lie within 0.1 of each
+   other (a third of the length scale 0.3);
+7. accuracy: the constant-velocity integration test at full width (decode
    error < 0.25 after 800 steps).
 
 The last three lines of standard output are the card's name and power
 limit, one JSON object describing the kernel, and the result line.
+
+To compare the kernel of two checkouts on one card, time each in turns
+within one command (the other commit unpacked into a git-ignored
+directory, e.g. ``git archive <commit> | tar -x -C build/parent``):
+
+    for r in build/parent . . build/parent; do
+        python3 chip_smoke.py --time "$r"; done
+
+``--time ROOT`` imports ``sspslam_tpu_torch`` from ROOT, times its
+``vco_scan`` at the cluster size it picks on the main path's first chunk
+and prints one JSON line; it runs none of the phases above.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
 
 SSP_DIM = 97
 N_NEURONS = 800
+FLOOR_NEURONS = 32
 CHUNK = 10_000
 TIMED = 50_000
 SEED = 0
 SHORT, LONG = 40, 2_000
 SHORT_TOL = 2e-4      # max-abs over 40 steps (tests/test_pallas.py bound)
-LONG_MEDIAN_TOL = 2e-3  # median |diff| over one 2,000-step chunk
+LONG_MEDIAN_TOL = 2e-3  # median |diff| over one 2,000- or 10,000-step chunk
+DRIFT_TOL = 0.1       # decoded-position difference, two kernels, whole run
 ACCURACY_TOL = 0.25   # decode error after 800 steps at constant velocity
+SWEEP = (1, 4, 4, 1)
+SWEEP_REPEATS = 3
+TIME_REPEATS = 5
+# The sweep's widths: (name, domain dim, ssp_dim, neurons per oscillator,
+# oscillators).  None takes the build's own k; a number takes the first k
+# oscillators of the build: on either side of k = 62, where the wrapper's
+# choice of C changes on 132 SMs, and of where a wave of resident clusters
+# ends; and one point at which that choice is not the faster (PERF.md).
+SWEEP_WIDTHS = (
+    ("full width", 2, SSP_DIM, N_NEURONS, None),
+    ("floor", 2, SSP_DIM, FLOOR_NEURONS, None),
+    ("3-D ssp_dim 201, first 62", 3, 201, N_NEURONS, 62),
+    ("3-D ssp_dim 201, first 63", 3, 201, N_NEURONS, 63),
+    ("3-D ssp_dim 201, n = 400, first 66", 3, 201, 400, 66),
+    ("3-D ssp_dim 201", 3, 201, N_NEURONS, None),
+    ("3-D ssp_dim 801", 3, 801, N_NEURONS, None),
+    *((f"3-D ssp_dim 801, first {k}", 3, 801, N_NEURONS, k)
+      for k in (124, 125, 132, 133, 264, 265)),
+)
+
+# The card's published peaks (NVIDIA H100 SXM data sheet, 700 W): float32
+# outside the tensor cores, and HBM3.
+PEAK_F32 = 67e12
+PEAK_BYTES = 3.35e12
+# The float32 operations the VCO bank needs (an FMA is two; a division,
+# expm1f or log1pf one; compares, selects and min/max are not counted).
+# Every neuron and step: the currents 6, the voltage 3, the refractory
+# clock 1.
+FLOP_NEURON = 10
+# Each spike: the spike time (J - 1, volt - 1, the division, log1pf and
+# its FMA, + tau_ref) 7; the one step after it whose decay factor is not a
+# constant (dt - refr, the division, expm1f) 3; its five decoder values
+# added to the decodes 5 (a silent neuron adds nothing).
+FLOP_SPIKE = 15
+# Every oscillator and step: the three inputs 4, five filters 15.
+FLOP_OSC = 19
 
 
 def log(msg):
     print(msg, flush=True)
 
 
-def nvidia_smi() -> str:
+def nvidia_smi(query="name,power.limit") -> str:
     proc = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60)
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60)
     return proc.stdout.strip().splitlines()[0]
 
 
-def make_space(space_cls):
-    bounds = 1.1 * np.tile(np.array([-1, 1.0]), (2, 1))
-    return space_cls(2, ssp_dim=SSP_DIM, seed=SEED, length_scale=0.3,
+class ClockSampler:
+    """nvidia-smi's SM clock, power draw and limit, and temperature every
+    200 ms while the block runs; the child process is stopped on exit."""
+
+    QUERY = "clocks.sm,power.draw,power.limit,temperature.gpu"
+
+    def __enter__(self):
+        self.proc = subprocess.Popen(
+            ["nvidia-smi", f"--query-gpu={self.QUERY}",
+             "--format=csv,noheader", "-lms", "200"],
+            stdout=subprocess.PIPE, text=True)
+        return self
+
+    def __exit__(self, *exc):
+        self.proc.terminate()
+        try:
+            out, _ = self.proc.communicate(timeout=30)
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            out, _ = self.proc.communicate()
+        self.lines = [line for line in out.splitlines() if line.strip()]
+        return False
+
+    def summary(self) -> str:
+        if not self.lines:
+            return "no samples"
+        cols = [[c.strip() for c in line.split(",")] for line in self.lines]
+        clocks = [c[0] for c in cols]
+        draws = [c[1] for c in cols]
+        return (f"{len(cols)} samples ({self.QUERY}): SM clock "
+                f"{min(clocks)}..{max(clocks)}, power draw "
+                f"{min(draws)}..{max(draws)}, limit {cols[0][2]}, "
+                f"temperature {cols[-1][3]} C")
+
+
+def make_space(space_cls, ssp_dim=SSP_DIM, dim=2):
+    bounds = 1.1 * np.tile(np.array([-1, 1.0]), (dim, 1))
+    return space_cls(dim, ssp_dim=ssp_dim, seed=SEED, length_scale=0.3,
                      domain_bounds=bounds)
 
 
@@ -82,10 +184,35 @@ def cuda_ms(fn, repeats=1):
     return start.elapsed_time(stop) / repeats, result
 
 
-def traffic():
+def traffic(dim=2):
     """bench.py --model pi-fast's velocities: warm-up chunk, then timed."""
     rng = np.random.default_rng(SEED)
-    return (0.02 * rng.normal(size=(CHUNK + TIMED, 2))).astype(np.float32)
+    return (0.02 * rng.normal(size=(CHUNK + TIMED, dim))).astype(np.float32)
+
+
+def bound_ms(n, k, d, N, T, spikes):
+    """The least time of one ``vco_scan`` call (kernel and output
+    projection) on the card, for a chunk whose neurons spike ``spikes``
+    times: its float32 operations over PEAK_F32 and its bytes (each input
+    read once, each output written once) over PEAK_BYTES, whichever is
+    larger; returns (ms, "operations"|"bytes")."""
+    flop = (T * k * (n * FLOP_NEURON + FLOP_OSC) + spikes * FLOP_SPIKE
+            + 2 * T * k * (2 * d + N)      # the input projections
+            + 2 * T * 2 * k * d)           # rows @ [ts0T; ts1T]
+    floats_in = (9 * n * k + k             # neuron params, dc_mask
+                 + (2 * d + N) * k         # tf0T, tf1T, velT_T
+                 + 2 * k * d               # ts0T, ts1T
+                 + T * (N + d)             # vel, corr
+                 + 2 * n * k + 5 * k)      # state
+    floats_out = T * d + 2 * n * k + 5 * k  # SSP trace, state
+    t_ops = flop / PEAK_F32 * 1e3
+    t_bytes = 4 * (floats_in + floats_out) / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def decode(space, rows):
+    return space.decode(np.atleast_2d(np.asarray(rows)), num_samples=100,
+                        device="cuda")
 
 
 def check_long(space, y_k, y_p, what):
@@ -97,8 +224,8 @@ def check_long(space, y_k, y_p, what):
                              f"{tuple(y_p.shape)} differ")
     diff = (y_k - y_p).abs()
     med = float(diff.median())
-    pos_k = space.decode(y_k[-1:].numpy(), num_samples=100)
-    pos_p = space.decode(y_p[-1:].numpy(), num_samples=100)
+    pos_k = decode(space, y_k[-1:].numpy())
+    pos_p = decode(space, y_p[-1:].numpy())
     log(f"{what}: max-abs {float(diff.max()):.3e}, median {med:.3e} "
         f"(tol {LONG_MEDIAN_TOL}), decoded position difference "
         f"{float(np.linalg.norm(pos_k - pos_p)):.4f}")
@@ -107,8 +234,43 @@ def check_long(space, y_k, y_p, what):
                              f"{LONG_MEDIAN_TOL}")
 
 
+class SpikeCounter:
+    """A neuron type that steps ``lif`` and counts the spikes it emits."""
+
+    def __init__(self, lif, device):
+        self.lif = lif
+        self.spikes = torch.zeros((), dtype=torch.int64, device=device)
+
+    def step(self, state, J, dt):
+        new, act = self.lif.step(state, J, dt)
+        self.spikes += torch.count_nonzero(act)
+        return new, act
+
+
+def count_spikes(vco, params, state, vel, corr, trace):
+    """The spikes of the plain version's run of one chunk: its loop again,
+    through a SpikeCounter; its SSP trace must equal ``trace``, the plain
+    version's own."""
+    xc0, xc1 = corr @ params.tf0T, corr @ params.tf1T
+    xv = vel @ params.velT_T
+    counter = SpikeCounter(vco._lif(params), vel.device)
+    rows = []
+    for t in range(vel.shape[0]):
+        state = vco._vco_step(params, counter, state, xc0[t:t + 1],
+                              xc1[t:t + 1], xv[t:t + 1])
+        rows.append(state.fout)
+    if not torch.equal(torch.cat(rows) @ vco.output_projection(params),
+                       trace):
+        raise AssertionError("the counted run differs from the plain version")
+    return int(counter.spikes)
+
+
 def check_kernel(fpi, space, vco):
-    """Kernel vs plain version on the card, same params and inputs."""
+    """Kernel vs plain version on the card, same params and inputs, for
+    every cluster size; returns the worst 40-step max-abs, the plain
+    version's time over the main path's first chunk and that chunk's
+    spikes, and that chunk's trace from the kernel (per C) and from the
+    plain version."""
     params, d = fpi.params, fpi.d
     rng = np.random.default_rng(1)
     T = SHORT + LONG
@@ -118,48 +280,49 @@ def check_kernel(fpi, space, vco):
     corr[:20] = torch.tensor(space.encode(np.array([[0.1, -0.2]])).ravel(),
                              dtype=torch.float32)
     state0 = fpi.initial_state()
-
-    s_k, y_k = vco.vco_scan(params, state0, vel[:SHORT], corr[:SHORT])
     s_p, y_p = vco.vco_scan_reference(params, state0, vel[:SHORT],
                                       corr[:SHORT])
-    err = float((y_k - y_p).abs().max())
-    log(f"kernel vs plain, {SHORT} steps: max-abs {err:.3e} "
-        f"(tol {SHORT_TOL})")
-    if not err <= SHORT_TOL:
-        raise AssertionError(f"kernel disagrees with its plain version: "
-                             f"{err} > {SHORT_TOL}")
-
-    # one long chunk, each version continuing from its own state
-    _, y_k = vco.vco_scan(params, s_k, vel[SHORT:], corr[SHORT:])
-    _, y_p = vco.vco_scan_reference(params, s_p, vel[SHORT:], corr[SHORT:])
-    check_long(space, y_k, y_p, f"kernel vs plain, {LONG} steps")
-
+    _, y_p_long = vco.vco_scan_reference(params, s_p, vel[SHORT:],
+                                         corr[SHORT:])
     # the main path's first chunk (CHUNK steps of its own traffic, from the
-    # zero state): device time of kernel and plain, and their agreement
-    vel = torch.tensor(traffic()[:CHUNK], device=fpi.device)
-    corr = torch.zeros((CHUNK, d), dtype=torch.float32, device=fpi.device)
-    vco.vco_scan(params, state0, vel, corr)   # warm-up
-    ms, (_, y_k) = cuda_ms(lambda: vco.vco_scan(params, state0, vel, corr), 3)
-    plain_ms, (_, y_p) = cuda_ms(
-        lambda: vco.vco_scan_reference(params, state0, vel, corr))
-    log(f"one {CHUNK}-step chunk: kernel {ms:.3f} ms "
-        f"({CHUNK / ms * 1e3:.0f} steps/s), plain {plain_ms:.1f} ms "
+    # zero state)
+    vel_c = torch.tensor(traffic()[:CHUNK], device=fpi.device)
+    corr_c = torch.zeros((CHUNK, d), dtype=torch.float32, device=fpi.device)
+    plain_ms, (_, y_p_chunk) = cuda_ms(
+        lambda: vco.vco_scan_reference(params, state0, vel_c, corr_c))
+    log(f"plain version, one {CHUNK}-step chunk: {plain_ms:.1f} ms "
         f"({CHUNK / plain_ms * 1e3:.0f} steps/s)")
-    check_long(space, y_k, y_p, f"kernel vs plain, {CHUNK} steps")
-    plain_long_ms, _ = cuda_ms(lambda: vco.vco_scan_reference(
-        params, state0, vel[:LONG], corr[:LONG]))
-    log(f"plain version over one {LONG}-step chunk: "
-        f"{LONG / plain_long_ms * 1e3:.0f} steps/s")
-    return err, ms, plain_ms, y_k, y_p
+    spikes = count_spikes(vco, params, state0, vel_c, corr_c, y_p_chunk)
+    log(f"plain version, one {CHUNK}-step chunk: {spikes} spikes = "
+        f"{spikes / (CHUNK * fpi.k * fpi.n):.5f} per neuron and step")
+
+    worst, y_chunk = 0.0, {}
+    for C in vco.CLUSTER_SIZES:
+        s_k, y_k = vco._vco_scan_cuda(params, state0, vel[:SHORT],
+                                      corr[:SHORT], cluster=C)
+        err = float((y_k - y_p).abs().max())
+        log(f"C={C}: kernel vs plain, {SHORT} steps: max-abs {err:.3e} "
+            f"(tol {SHORT_TOL})")
+        if not err <= SHORT_TOL:
+            raise AssertionError(f"kernel (C={C}) disagrees with its plain "
+                                 f"version: {err} > {SHORT_TOL}")
+        worst = max(worst, err)
+        # one long chunk, each version continuing from its own state
+        _, y_k = vco._vco_scan_cuda(params, s_k, vel[SHORT:], corr[SHORT:],
+                                    cluster=C)
+        check_long(space, y_k, y_p_long,
+                   f"C={C}: kernel vs plain, {LONG} steps")
+        _, y_chunk[C] = vco._vco_scan_cuda(params, state0, vel_c, corr_c,
+                                           cluster=C)
+        check_long(space, y_chunk[C], y_p_chunk,
+                   f"C={C}: kernel vs plain, {CHUNK} steps")
+    return worst, plain_ms, spikes, y_chunk, y_p_chunk
 
 
 def check_other_widths(vco, space_cls, fpi_cls):
-    """The kernel's other neurons-per-thread variants (1 at n = 48 and 300,
-    4 at n = 2,000; full width runs 2) against the plain version, 40
-    steps."""
-    bounds = 1.1 * np.tile(np.array([-1, 1.0]), (2, 1))
-    space = space_cls(2, ssp_dim=31, seed=SEED, length_scale=0.3,
-                      domain_bounds=bounds)
+    """The kernel's other neurons-per-thread variants (n = 48, 300 and
+    2,000 at ssp_dim 31) against the plain version, 40 steps, every C."""
+    space = make_space(space_cls, ssp_dim=31)
     rng = np.random.default_rng(2)
     vel = torch.tensor(0.05 * rng.normal(size=(SHORT, 2)),
                        dtype=torch.float32, device="cuda")
@@ -170,33 +333,106 @@ def check_other_widths(vco, space_cls, fpi_cls):
     for n in (48, 300, 2000):
         fpi = fpi_cls(space, n, seed=SEED, device="cuda")
         state0 = fpi.initial_state()
-        _, y_k = vco.vco_scan(fpi.params, state0, vel, corr)
         _, y_p = vco.vco_scan_reference(fpi.params, state0, vel, corr)
+        for C in vco.CLUSTER_SIZES:
+            _, y_k = vco._vco_scan_cuda(fpi.params, state0, vel, corr,
+                                        cluster=C)
+            err = float((y_k - y_p).abs().max())
+            log(f"C={C}: kernel vs plain, n={n}, k={fpi.k}, {SHORT} steps: "
+                f"max-abs {err:.3e} (tol {SHORT_TOL})")
+            if not err <= SHORT_TOL:
+                raise AssertionError(f"kernel disagrees at n={n}, C={C}: "
+                                     f"{err}")
+
+
+def first_oscillators(vco, params, k):
+    """The bank of the first k oscillators of ``params``."""
+    cut = {f: getattr(params, f)[:k].contiguous()
+           if f in ("ts0T", "ts1T") else getattr(params, f)[:, :k].contiguous()
+           for f in vco.ARRAY_FIELDS}
+    return params._replace(**cut)
+
+
+def sweep(vco, params, vel, corr):
+    """The kernel at every C against the plain version over SHORT steps,
+    then ms per CHUNK-step chunk for each C of SWEEP, in that order."""
+    n, k = params.bias.shape
+    state0 = vco.initial_vco_state(n, k, device="cuda")
+    _, y_p = vco.vco_scan_reference(params, state0, vel[:SHORT],
+                                    corr[:SHORT])
+    for C in vco.CLUSTER_SIZES:
+        _, y_k = vco._vco_scan_cuda(params, state0, vel[:SHORT],
+                                    corr[:SHORT], cluster=C)
         err = float((y_k - y_p).abs().max())
-        log(f"kernel vs plain, n={n}, k={fpi.k}, {SHORT} steps: "
-            f"max-abs {err:.3e} (tol {SHORT_TOL})")
         if not err <= SHORT_TOL:
-            raise AssertionError(f"kernel disagrees at n={n}: {err}")
+            raise AssertionError(f"kernel disagrees at n={n}, k={k}, C={C}: "
+                                 f"{err}")
+    times = {}
+    for C in SWEEP:
+        def launch():
+            return vco._vco_scan_cuda(params, state0, vel, corr, cluster=C)
+        launch()  # warm-up
+        ms, _ = cuda_ms(launch, SWEEP_REPEATS)
+        times.setdefault(C, []).append(ms)
+    return times
+
+
+def cluster_sweep(vco, fpi, space_cls, fpi_cls, num_sms):
+    """Phase 4: the C sweep at every width of SWEEP_WIDTHS, timed in that
+    order, each on the main path's first chunk of traffic (no
+    corrections).  Returns {name: {C: [ms, ...]}}."""
+    builds = {(2, SSP_DIM, N_NEURONS): fpi}
+    results = {}
+    with ClockSampler() as clocks:
+        for name, dim, ssp_dim, n, k in SWEEP_WIDTHS:
+            if (dim, ssp_dim, n) not in builds:
+                builds[dim, ssp_dim, n] = fpi_cls(
+                    make_space(space_cls, ssp_dim, dim), n, seed=SEED,
+                    device="cuda")
+            build = builds[dim, ssp_dim, n]
+            params = (build.params if k is None
+                      else first_oscillators(vco, build.params, k))
+            vel = torch.tensor(traffic(dim)[:CHUNK], device="cuda")
+            corr = torch.zeros((CHUNK, build.d), dtype=torch.float32,
+                               device="cuda")
+            results[name] = times = sweep(vco, params, vel, corr)
+            k = params.bias.shape[1]
+            fastest = min(times, key=lambda C: np.mean(times[C]))
+            for C, ms in times.items():
+                log(f"sweep, {name} (n={n}, k={k}), C={C}: ms per "
+                    f"{CHUNK}-step chunk "
+                    f"{', '.join(f'{t:.3f}' for t in ms)} = "
+                    f"{np.mean(ms) / CHUNK * 1e6:.1f} ns per step")
+            log(f"sweep, {name}: kernel vs plain <= {SHORT_TOL} over "
+                f"{SHORT} steps at every C; fastest C {fastest}, the "
+                f"wrapper picks {vco._cluster_size(n, k, num_sms)}")
+    log(f"sweep window: {clocks.summary()}")
+    return results
 
 
 def main_path(fpi, vco, space, first_kernel, first_plain):
     """bench.py --model pi-fast's traffic through the user entry points.
-    The warm-up chunk is the chunk check_kernel ran: it must match that
-    kernel launch (max-abs <= SHORT_TOL) and agree with the plain version's
-    trace of it (median |diff| <= LONG_MEDIAN_TOL)."""
+    The warm-up chunk is the chunk check_kernel ran at the wrapper's C: it
+    must match that kernel launch (max-abs <= SHORT_TOL) and agree with the
+    plain version's trace of it (median |diff| <= LONG_MEDIAN_TOL).
+    Returns the launches and the whole trace (CHUNK + TIMED, d)."""
     vels = traffic()
     vco.vco_scan.launches = 0
     t0 = time.perf_counter()
     warm = fpi.run(vels[:CHUNK])
     log(f"warm-up chunk: {time.perf_counter() - t0:.3f} s")
     torch.cuda.synchronize()
+    before = nvidia_smi(ClockSampler.QUERY)
     t0 = time.perf_counter()
     outs = fpi.run(vels[CHUNK:], transfer=False)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
+    after = nvidia_smi(ClockSampler.QUERY)
     launches = vco.vco_scan.launches
     log(f"main path: {TIMED} steps in {seconds:.4f} s = "
         f"{TIMED / seconds:.0f} steps/s; vco_scan launches {launches}")
+    log(f"main-path window ({ClockSampler.QUERY}): just before "
+        f"{before}; just after {after}")
     if launches == 0:
         raise AssertionError("the main path never launched the kernel")
     same = float(np.abs(warm - first_kernel.cpu().numpy()).max())
@@ -211,7 +447,35 @@ def main_path(fpi, vco, space, first_kernel, first_plain):
     if out.shape != (TIMED, fpi.d) or not np.all(np.isfinite(out)):
         raise AssertionError(f"main-path output is not finite (T, d): "
                              f"{out.shape}")
-    return launches
+    return launches, np.concatenate([warm, out])
+
+
+def whole_run(vco, fpi, space, chosen, trace):
+    """The main path's CHUNK + TIMED steps again, chunk by chunk through the
+    kernel at the other cluster size: median |diff| and decoded-position
+    difference at every chunk end."""
+    other = 1 if chosen != 1 else 4
+    vel = torch.tensor(traffic(), device="cuda")
+    corr = torch.zeros((CHUNK, fpi.d), dtype=torch.float32, device="cuda")
+    state = fpi.initial_state()
+    ends, worst = [], 0.0
+    for lo in range(0, CHUNK + TIMED, CHUNK):
+        state, y = vco._vco_scan_cuda(fpi.params, state, vel[lo:lo + CHUNK],
+                                      corr, cluster=other)
+        y = y.cpu().numpy()
+        ref = trace[lo:lo + CHUNK]
+        med = float(np.median(np.abs(y - ref)))
+        dist = float(np.linalg.norm(decode(space, y[-1]) -
+                                    decode(space, ref[-1])))
+        ends.append(dist)
+        worst = max(worst, dist)
+        log(f"whole run, C={chosen} vs C={other}, steps {lo}..{lo + CHUNK}: "
+            f"median |diff| {med:.3e}, decoded position difference at the "
+            f"chunk end {dist:.4f} (tol {DRIFT_TOL})")
+    if not worst <= DRIFT_TOL:
+        raise AssertionError(f"whole run: C={chosen} and C={other} decode "
+                             f"{worst} apart > {DRIFT_TOL}")
+    return other, ends
 
 
 def accuracy(space_cls, fpi_cls):
@@ -227,7 +491,7 @@ def accuracy(space_cls, fpi_cls):
     fpi = fpi_cls(space, N_NEURONS, seed=3, scaling_factor=scale,
                   chunk_steps=200, device="cuda")
     out = fpi.run(vels, corr)
-    dec = space.decode(out[-1][None, :], num_samples=50)
+    dec = space.decode(out[-1][None, :], num_samples=50, device="cuda")
     err = float(np.linalg.norm(dec - v * T * 0.001))
     log(f"constant-velocity decode error after {T} steps: {err:.4f} "
         f"(tol {ACCURACY_TOL})")
@@ -235,18 +499,52 @@ def accuracy(space_cls, fpi_cls):
         raise AssertionError(f"integration error {err} >= {ACCURACY_TOL}")
 
 
+def time_checkout(root: str) -> None:
+    """``--time ROOT``: ms per CHUNK-step chunk of the ``vco_scan`` of the
+    checkout at ``root``, at the cluster size it picks, on the main path's
+    first chunk (zero state, no corrections), by CUDA events: one warm-up
+    launch, then TIME_REPEATS.  Prints one JSON line."""
+    root = str(Path(root).resolve())
+    sys.path.insert(0, root)
+    from sspslam_tpu_torch import FastPathIntegrator, HexagonalSSPSpace
+    from sspslam_tpu_torch.ops import vco_scan as vco
+    torch.backends.cuda.matmul.allow_tf32 = False
+    fpi = FastPathIntegrator(make_space(HexagonalSSPSpace), N_NEURONS,
+                             seed=SEED, chunk_steps=CHUNK, device="cuda")
+    vel = torch.tensor(traffic()[:CHUNK], device="cuda")
+    corr = torch.zeros((CHUNK, fpi.d), dtype=torch.float32, device="cuda")
+    state0 = fpi.initial_state()
+
+    def launch():
+        return vco.vco_scan(fpi.params, state0, vel, corr)
+    launch()  # build, load, warm up
+    ms, _ = cuda_ms(launch, TIME_REPEATS)
+    print(json.dumps({"root": root, "nvidia_smi": nvidia_smi(),
+                      "neurons": fpi.n, "k": fpi.k, "ms": ms}), flush=True)
+
+
 def main() -> int:
+    ap = argparse.ArgumentParser(
+        description="Smoke test of the PyTorch / CUDA port on one GPU.")
+    ap.add_argument("--time", metavar="ROOT",
+                    help="only time the VCO-bank kernel of the checkout at "
+                         "ROOT (see the module docstring)")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    if args.time is not None:
+        time_checkout(args.time)
+        return 0
     from sspslam_tpu_torch import FastPathIntegrator, HexagonalSSPSpace
     from sspslam_tpu_torch.ops import vco_scan as vco
 
     # 1. device
     smi = nvidia_smi()
     name = torch.cuda.get_device_name(0)
-    log(f"torch {torch.__version__} (CUDA {torch.version.cuda}), {name}; "
-        f"nvidia-smi: {smi}")
+    num_sms = torch.cuda.get_device_properties(0).multi_processor_count
+    log(f"torch {torch.__version__} (CUDA {torch.version.cuda}), {name}, "
+        f"{num_sms} SMs; nvidia-smi: {smi}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -265,24 +563,49 @@ def main() -> int:
                              device="cuda")
     log(f"FastPathIntegrator build (d={fpi.d}, k={fpi.k}, n={fpi.n}): "
         f"{time.perf_counter() - t0:.1f} s")
-    err, ms, plain_ms, first_kernel, first_plain = check_kernel(
-        fpi, space, vco)
+    chosen = vco._cluster_size(fpi.n, fpi.k, num_sms)
+    log(f"cluster size the wrapper picks for n={fpi.n}, k={fpi.k}: {chosen}")
+    err, plain_ms, spikes, y_chunk, first_plain = check_kernel(fpi, space,
+                                                               vco)
     check_other_widths(vco, HexagonalSSPSpace, FastPathIntegrator)
 
-    # 4. main path
-    fpi.state = fpi.initial_state()
-    launches = main_path(fpi, vco, space, first_kernel, first_plain)
+    # 4. cluster sweep
+    swept = cluster_sweep(vco, fpi, HexagonalSSPSpace, FastPathIntegrator,
+                          num_sms)
+    full = swept["full width"]
 
-    # 5. accuracy
+    # 5. main path
+    fpi.state = fpi.initial_state()
+    launches, trace = main_path(fpi, vco, space, y_chunk[chosen],
+                                first_plain)
+
+    # 6. whole run against the other cluster size
+    other, ends = whole_run(vco, fpi, space, chosen, trace)
+
+    # 7. accuracy
     accuracy(HexagonalSSPSpace, FastPathIntegrator)
 
+    ms = float(np.mean(full[chosen]))
+    b_ms, b_by = bound_ms(fpi.n, fpi.k, fpi.d, fpi.N, CHUNK, spikes)
+    log(f"bound per {CHUNK}-step chunk ({spikes} spikes): {b_ms:.4f} ms "
+        f"({b_by}); kernel {ms:.3f} ms = {b_ms / ms * 100:.2f} % of its "
+        f"bound")
     log(nvidia_smi())
     print(json.dumps({"kernels": [{
         "name": "vco_scan", "route": "cuda",
         "source": "sspslam_tpu_torch/csrc/vco_scan.cu",
         "replaces": "sspslam_tpu/ops/pallas_kernels.py:247",
         "launches": launches, "max_abs_err": err,
-        "ms": ms, "plain_ms": plain_ms}]}))
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": None, "cluster": chosen, "spikes": spikes,
+        "ms_by_cluster": {str(C): t for C, t in full.items()},
+        "floor_ms_by_cluster": {
+            str(C): t for C, t in swept["floor"].items()},
+        "sweep_ms_by_cluster": {
+            width: {str(C): t for C, t in times.items()}
+            for width, times in swept.items()},
+        "whole_run_vs_cluster": other,
+        "whole_run_decoded_diff": ends}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

@@ -8,45 +8,80 @@
 // which the wrapper applies with torch.matmul outside the kernel, as the
 // JAX package applies it outside its pallas_call.
 //
-// Design.  Once the two input projections are hoisted out of the time loop,
-// every oscillator evolves independently for the whole chunk, so the grid
-// is one block per oscillator with no inter-block synchronisation.  A block:
-//   1. prologue: projects the chunk's corrections (T, d) and velocities
-//      (T, N) onto its own oscillator (columns j of tf0T, tf1T, velT_T) into
-//      a per-oscillator scratch xs[j] = (xc0, xc1, xv), each (T,);
-//   2. loads its neurons' voltage, refractory time and 9 parameters (3
-//      encoders, bias, 5 decoders) into registers, NPT neurons per thread;
-//   3. runs the rolled time loop: currents J, the LIF update (expm1f /
-//      log1pf, the executor's formulas), five population decodes as a block
-//      reduction (warp butterflies, one shared-memory exchange), and the
-//      lowpass filters of the three recurrent rows and the two output rows.
-//      Every thread ends the reduction holding the same sums, so every
-//      thread keeps its own copy of the filter state and no broadcast is
-//      needed; the partial sums are double-buffered, which leaves ONE
-//      __syncthreads per step.  Thread 0 writes out[t, j] and out[t, k+j].
-// The DC oscillator's pin (dc_mask, zeroed recurrent decoders) is data.
+// What bounds it.  Every neuron needs 10 float32 operations a step (the
+// currents 6, an FMA counted as two; the voltage 3; the refractory clock
+// 1), and each spike 15 more (the spike time: J - 1, volt - 1, a division,
+// log1pf and its FMA, + tau_ref; the one step after it whose decay factor
+// is not a constant: dt - refr, a division, expm1f; its five decoder
+// values added to the decodes, which a silent neuron adds nothing to);
+// compares, selects and min/max are not counted.
+// At ssp_dim 97 (k = 49 oscillators of n = 800), with the 0.095 spikes
+// per neuron and step of the main path's first chunk, that is about 4.9
+// GFLOP per 10,000-step chunk with the projections, about 0.073 ms at the
+// card's 67 TFLOP/s; it moves about 10 MB (0.003 ms at 3.35 TB/s), so
+// operations set the bound (chip_smoke.py: bound_ms, from the spikes of
+// its run).
+// What holds the kernel far above it is that a step is a serial chain
+// within each oscillator: the five population decodes must be complete
+// before the next step's currents.  On one SM per oscillator the chain is
+// the LIF instructions of all n neurons, then a block reduction, and only
+// k of the card's 132 SMs work.
 //
-// What bounds it.  The state (~11 floats per neuron, 35 KB per oscillator at
-// n = 800) stays in registers for the whole chunk and each step moves a few
-// bytes, so bytes and FLOPs do not bound it.  Each step is a serial chain:
-// the LIF update of the block's n neurons, issued by ONE SM (expm1f, log1pf
-// and two IEEE divisions per neuron), then two shuffle trees and a barrier
-// (per-step latency).  Only k of the card's 132 SMs are busy (49 at
-// ssp_dim 97).  This first design accepts both; running several
-// independent trials per launch, or splitting an oscillator across a
-// thread-block cluster, is later work.
+// Design: one oscillator per thread-block cluster of C CTAs (C = 1 or 4;
+// one template).  The input projections are hoisted out of the time loop,
+// so oscillators never interact inside a chunk and clusters need no
+// synchronisation between them.  CTA rank r of cluster j owns neurons
+// [r * ceil(n / C), ...) of oscillator j, so each SM runs 1/C of the
+// oscillator's neuron instructions.  A CTA:
+//   1. prologue: projects its share of the chunk's corrections (T, d) and
+//      velocities (T, N) onto oscillator j (columns j of tf0T, tf1T,
+//      velT_T) into the oscillator's scratch xs[j] = (xc0, xc1, xv), each
+//      (T,); a cluster barrier then publishes all T rows to every rank;
+//   2. loads its neurons' voltage, refractory time and 9 parameters into
+//      registers, NPT neurons per thread;
+//   3. runs the time loop.  The chain part of a step is the currents, the
+//      new voltages, the spikes and the five decode sums: a warp butterfly,
+//      then lanes 0..C-1 of every warp send the warp's five sums with
+//      st.async through distributed shared memory into slot (rank, warp) of
+//      every CTA of the cluster.  Each store completes on the receiving
+//      CTA's mbarrier for that step (complete_tx), and thread 0 of each CTA
+//      arrives on it once, announcing the C x nwarps x 20 bytes to come.
+//      The sender neither waits nor fences: the same kernel with a split
+//      cluster barrier (barrier.cluster.arrive.release / wait.acquire) in
+//      place of the mbarrier measured 0.28-0.36 us slower per step at
+//      n = 32 (PERF.md), presumably because a release waits for the step's
+//      prefetch loads and output stores still in flight.  While the
+//      exchange lands, each thread finishes its neurons' LIF update off the
+//      chain (reset, refractory time, the next step's decay factor: both
+//      divisions, expm1f and log1pf).  After the mbarrier's phase completes
+//      (acquire), lane l of every warp of every CTA adds slots l, l+32, ...
+//      and a warp butterfly sums the lanes: the same data in the same lanes,
+//      so every thread of the cluster holds bit-identical sums and keeps an
+//      identical copy of the filter state; no atomics, so a run is
+//      deterministic.  Slots and mbarriers are double-buffered by step
+//      parity.  A CTA sends step t+2's sums only after its step t+1 phase
+//      completed, which needs every warp's step t+1 sums, computed from
+//      that warp's step t reads: so no slot is overwritten before it is read.
+//   Rank 0, thread 0 writes out[t, j], out[t, k+j] and the final filters;
+//   every rank writes back its own neurons' voltage and refractory time.
+// The DC oscillator's pin (dc_mask, zeroed recurrent decoders) is data.
+// The host side picks C (ops/vco_scan.py: _cluster_size).  Clusters never
+// wait on one another, so a grid of more clusters than fit at once runs in
+// waves; the hardware co-schedules the C CTAs of each cluster.
 
 #include <cuda_runtime.h>
 
 namespace {
 
-// At most 512 threads per block: at n = 800 that is 2 neurons per thread,
-// 13 warps per SM, which measured faster on an H100 than 4 per thread at
+// At most 512 threads per CTA: at n = 800 on one CTA that is 2 neurons per
+// thread, 13 warps, which measured faster on an H100 than 4 per thread at
 // 256 or 1 per thread at 1024 (PERF.md).
 constexpr int kMaxThreads = 512;
 constexpr int kMaxWarps = kMaxThreads / 32;
-// Neurons per thread: 1, 2 or 4, so at most 2,048 neurons per oscillator.
+// Neurons per thread: 1, 2 or 4, so at most 2,048 neurons per CTA.
 constexpr int kMaxNpt = 4;
+// Floats per exchanged partial: the five sums, padded to two float4.
+constexpr int kSlot = 8;
 constexpr unsigned kFull = 0xffffffffu;
 
 struct Consts {
@@ -63,7 +98,77 @@ __device__ __forceinline__ void warp_sum5(float (&p)[5]) {
   }
 }
 
-template <int NPT>
+__device__ __forceinline__ unsigned cluster_rank() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
+  return r;
+}
+
+// The whole cluster, once, around the prologue (release / acquire).
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n\t"
+      "barrier.cluster.wait.acquire.aligned;" ::: "memory");
+}
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(unsigned bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;"
+               :: "r"(bar), "r"(count) : "memory");
+}
+
+// This CTA's one arrival on `bar` for the current phase, announcing the
+// bytes that the cluster's st.async stores will deliver to it.
+__device__ __forceinline__ void mbar_expect(unsigned bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+
+// Spins until the phase of `bar` with this parity has completed: the
+// arrival is in and every announced byte has landed (acquire, cluster).
+__device__ __forceinline__ void mbar_wait(unsigned bar, unsigned parity) {
+  asm volatile(
+      "{\n\t"
+      ".reg .pred done;\n"
+      "WAIT:\n\t"
+      "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 done, [%0], "
+      "%1;\n\t"
+      "@!done bra WAIT;\n\t"
+      "}" :: "r"(bar), "r"(parity) : "memory");
+}
+
+// Five sums (20 bytes) into the slot at shared address `slot` of CTA `rank`
+// of the cluster, completing on that CTA's mbarrier at address `bar`
+// (st.async: the sender does not wait, and no fence orders it).
+__device__ __forceinline__ void send_slot(unsigned slot, unsigned bar,
+                                          unsigned rank,
+                                          const float (&p)[5]) {
+  unsigned rslot, rbar;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
+               : "=r"(rslot) : "r"(slot), "r"(rank));
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
+               : "=r"(rbar) : "r"(bar), "r"(rank));
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.f32 "
+      "[%0], {%1, %2, %3, %4}, [%6];\n\t"
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.f32 "
+      "[%0+16], %5, [%6];"
+      :: "r"(rslot), "f"(p[0]), "f"(p[1]), "f"(p[2]), "f"(p[3]), "f"(p[4]),
+         "r"(rbar)
+      : "memory");
+}
+
+// -expm1(-delta_t / tau_rc) for the refractory clock `refr` (= rf - dt): the
+// voltage update's decay factor, a function of the state alone.
+__device__ __forceinline__ float decay(float refr, const Consts& c) {
+  const float delta_t = fminf(fmaxf(c.dt - refr, 0.f), c.dt);
+  return -expm1f(-delta_t / c.tau_rc);
+}
+
+template <int NPT, int C>
 __global__ void __launch_bounds__(kMaxThreads) vco_scan_kernel(
     const float* __restrict__ enc0, const float* __restrict__ enc1,
     const float* __restrict__ enc2, const float* __restrict__ bias,
@@ -81,16 +186,28 @@ __global__ void __launch_bounds__(kMaxThreads) vco_scan_kernel(
     float* __restrict__ f2_out, float* __restrict__ fo_out, float* xs,
     int n, int k, int d, int N, int T, Consts c) {
   extern __shared__ float cols[];  // (2d + N): this oscillator's columns
-  __shared__ float red[2][kMaxWarps][5];
+  // [step parity][source rank * nwarps + source warp][five sums], and the
+  // mbarrier that completes when a step's slots have all landed
+  __shared__ __align__(16) float xch[2][C * kMaxWarps][kSlot];
+  __shared__ __align__(8) unsigned long long full[2];
 
-  const int j = blockIdx.x;
+  const unsigned rank = C == 1 ? 0u : cluster_rank();
+  const int j = blockIdx.x / C;
   const int tid = threadIdx.x;
   const int nthreads = blockDim.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
   const int nwarps = nthreads >> 5;
+  const int per = (n + C - 1) / C;  // neurons per CTA; rank r owns r*per..
+  const int lo = static_cast<int>(rank) * per;
 
-  // ---- 1. input projections for the whole chunk ------------------------
+  if (tid == 0) {
+    mbar_init(smem_addr(&full[0]), 1);
+    mbar_init(smem_addr(&full[1]), 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+
+  // ---- 1. input projections for the whole chunk, shared across ranks ----
   for (int i = tid; i < d; i += nthreads) {
     cols[i] = tf0T[(size_t)i * k + j];
     cols[d + i] = tf1T[(size_t)i * k + j];
@@ -102,7 +219,8 @@ __global__ void __launch_bounds__(kMaxThreads) vco_scan_kernel(
   float* xc0 = xs + (size_t)j * 3 * T;
   float* xc1 = xc0 + T;
   float* xv = xc1 + T;
-  for (int t = tid; t < T; t += nthreads) {
+  for (int t = static_cast<int>(rank) * nthreads + tid; t < T;
+       t += C * nthreads) {
     const float* cr = corr + (size_t)t * d;
     float s0 = 0.f, s1 = 0.f, s2 = 0.f;
     for (int i = 0; i < d; ++i) {
@@ -120,11 +238,12 @@ __global__ void __launch_bounds__(kMaxThreads) vco_scan_kernel(
   // ---- 2. neuron state and parameters into registers ---------------------
   float e0[NPT], e1[NPT], e2[NPT], bs[NPT];
   float r0[NPT], r1[NPT], r2[NPT], o0[NPT], o1[NPT];
-  float v[NPT], rf[NPT];
+  float v[NPT], rf[NPT], refr[NPT], dec[NPT];
 #pragma unroll
   for (int s = 0; s < NPT; ++s) {
-    const int i = tid + s * nthreads;
-    const bool ok = i < n;
+    const int il = tid + s * nthreads;
+    const int i = lo + il;
+    const bool ok = il < per && i < n;
     const size_t at = (size_t)(ok ? i : 0) * k + j;
     e0[s] = ok ? enc0[at] : 0.f;
     e1[s] = ok ? enc1[at] : 0.f;
@@ -137,16 +256,22 @@ __global__ void __launch_bounds__(kMaxThreads) vco_scan_kernel(
     o1[s] = ok ? dout1[at] : 0.f;
     v[s] = ok ? volt_in[at] : 0.f;
     rf[s] = ok ? refr_in[at] : 0.f;
+    refr[s] = rf[s] - c.dt;
+    dec[s] = decay(refr[s], c);
   }
   float f0 = f0_in[j], f1 = f1_in[j], f2 = f2_in[j];
   float g0 = fo_in[j], g1 = fo_in[k + j];
   const float dcm = dc_mask[j];
-  __syncthreads();  // the block's scratch rows are written
+  // every rank's scratch rows are written, and every CTA of the cluster has
+  // started and initialised its mbarriers (its slots may be sent to now)
+  cluster_sync();
 
   // ---- 3. the time loop ----------------------------------------------------
+  const unsigned bytes = 5 * sizeof(float) * C * nwarps;  // per CTA and step
   float nc0 = xc0[0], nc1 = xc1[0], ncv = xv[0];
-  int buf = 0;
   for (int t = 0; t < T; ++t) {
+    const int buf = t & 1;
+    const unsigned bar = smem_addr(&full[buf]);
     const float c0 = nc0, c1 = nc1, cv = ncv;
     if (t + 1 < T) {  // prefetch the next step's inputs
       nc0 = xc0[t + 1];
@@ -157,62 +282,82 @@ __global__ void __launch_bounds__(kMaxThreads) vco_scan_kernel(
     const float x1 = f1 + c1;
     const float x2 = f2 + cv;
 
+    // The chain: currents, voltages, spikes, the five partial decodes.
     // Branch-free, as the Pallas kernel is: the NPT neurons of a thread are
-    // independent chains the compiler can interleave.  A padding slot
-    // (i >= n) has zero parameters, so J = 0, it never spikes and adds 0.
+    // independent chains the compiler can interleave.  A padding slot has
+    // zero parameters, so J = 0, it never spikes and adds 0.
+    float J[NPT], volt[NPT];
     float p[5] = {0.f, 0.f, 0.f, 0.f, 0.f};
 #pragma unroll
     for (int s = 0; s < NPT; ++s) {
-      const float J = e0[s] * x0 + e1[s] * x1 + e2[s] * x2 + bs[s];
-      const float refr = rf[s] - c.dt;
-      const float delta_t = fminf(fmaxf(c.dt - refr, 0.f), c.dt);
-      const float volt = v[s] + (J - v[s]) * -expm1f(-delta_t / c.tau_rc);
-      const bool spiked = volt > 1.f;
-      const float denom = spiked ? fmaxf(J - 1.f, 1e-12f) : 1.f;
-      const float over = fminf(fmaxf((volt - 1.f) / denom, 0.f), 1.f - 1e-6f);
-      const float t_spike = c.dt + c.tau_rc * log1pf(-over);
-      const float act = spiked ? c.spike_out : 0.f;
-      v[s] = spiked ? 0.f : fmaxf(volt, 0.f);
-      rf[s] = spiked ? c.tau_ref + t_spike : refr;
+      J[s] = e0[s] * x0 + e1[s] * x1 + e2[s] * x2 + bs[s];
+      volt[s] = v[s] + (J[s] - v[s]) * dec[s];
+      const float act = volt[s] > 1.f ? c.spike_out : 0.f;
       p[0] += act * r0[s];
       p[1] += act * r1[s];
       p[2] += act * r2[s];
       p[3] += act * o0[s];
       p[4] += act * o1[s];
     }
-
     warp_sum5(p);
-    if (lane == 0) {
-#pragma unroll
-      for (int q = 0; q < 5; ++q) red[buf][warp][q] = p[q];
+    if (tid == 0) mbar_expect(bar, bytes);
+    if (lane < C) {
+      send_slot(smem_addr(&xch[buf][static_cast<int>(rank) * nwarps + warp]),
+                bar, lane, p);
     }
-    __syncthreads();
-    float r[5];
+
+    // Off the chain, while the exchange completes: the rest of the LIF
+    // update (the executor's formulas) and the next step's decay factor.
 #pragma unroll
-    for (int q = 0; q < 5; ++q) r[q] = lane < nwarps ? red[buf][lane][q] : 0.f;
+    for (int s = 0; s < NPT; ++s) {
+      const bool spiked = volt[s] > 1.f;
+      const float denom = spiked ? fmaxf(J[s] - 1.f, 1e-12f) : 1.f;
+      const float over =
+          fminf(fmaxf((volt[s] - 1.f) / denom, 0.f), 1.f - 1e-6f);
+      const float t_spike = c.dt + c.tau_rc * log1pf(-over);
+      v[s] = spiked ? 0.f : fmaxf(volt[s], 0.f);
+      rf[s] = spiked ? c.tau_ref + t_spike : refr[s];
+      refr[s] = rf[s] - c.dt;
+      dec[s] = decay(refr[s], c);
+    }
+
+    mbar_wait(bar, (t >> 1) & 1);
+    // Lane l of every warp of the cluster holds slots l, l + 32, ... and the
+    // butterfly sums them: the same data in the same lanes, the same sums.
+    float r[5] = {0.f, 0.f, 0.f, 0.f, 0.f};
+    for (int src = lane; src < C * nwarps; src += 32) {
+      const float4 a = *reinterpret_cast<const float4*>(&xch[buf][src][0]);
+      r[0] += a.x;
+      r[1] += a.y;
+      r[2] += a.z;
+      r[3] += a.w;
+      r[4] += xch[buf][src][4];
+    }
     warp_sum5(r);
-    buf ^= 1;  // the next step writes the other buffer (see the header)
 
     f0 = c.a_rec * f0 + c.b_rec * r[0];
     f1 = c.a_rec * f1 + c.b_rec * r[1];
     f2 = c.a_rec * f2 + c.b_rec * r[2];
     g0 = c.a_out * g0 + c.b_out * r[3];
     g1 = c.a_out * g1 + c.b_out * r[4];
-    if (tid == 0) {
+    if (rank == 0 && tid == 0) {
       out[(size_t)t * 2 * k + j] = g0;
       out[(size_t)t * 2 * k + k + j] = g1;
     }
   }
+  // A CTA may exit now: every byte the cluster sends into its shared memory
+  // belongs to a step whose phase it has waited for.
 
 #pragma unroll
   for (int s = 0; s < NPT; ++s) {
-    const int i = tid + s * nthreads;
-    if (i < n) {
+    const int il = tid + s * nthreads;
+    const int i = lo + il;
+    if (il < per && i < n) {
       volt_out[(size_t)i * k + j] = v[s];
       refr_out[(size_t)i * k + j] = rf[s];
     }
   }
-  if (tid == 0) {
+  if (rank == 0 && tid == 0) {
     f0_out[j] = f0;
     f1_out[j] = f1;
     f2_out[j] = f2;
@@ -221,16 +366,68 @@ __global__ void __launch_bounds__(kMaxThreads) vco_scan_kernel(
   }
 }
 
-template <int NPT>
-cudaError_t launch(int threads, size_t smem, cudaStream_t stream,
-                   const float* const* in, float* const* outp, int n, int k,
-                   int d, int N, int T, Consts c) {
-  vco_scan_kernel<NPT><<<k, threads, smem, stream>>>(
-      in[0], in[1], in[2], in[3], in[4], in[5], in[6], in[7], in[8], in[9],
-      in[10], in[11], in[12], in[13], in[14], in[15], in[16], in[17], in[18],
-      in[19], in[20], outp[0], outp[1], outp[2], outp[3], outp[4], outp[5],
-      outp[6], outp[7], n, k, d, N, T, c);
-  return cudaGetLastError();
+struct Launch {
+  const float* const* in;
+  float* const* out;
+  int n, k, d, N, T;
+  Consts c;
+  int threads;
+  size_t smem;
+  cudaStream_t stream;
+};
+
+template <int NPT, int C>
+cudaError_t go(const Launch& L) {
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(L.k * C);
+  cfg.blockDim = dim3(L.threads);
+  cfg.dynamicSmemBytes = L.smem;
+  cfg.stream = L.stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const float* const* in = L.in;
+  float* const* o = L.out;
+  cudaError_t err = cudaLaunchKernelEx(
+      &cfg, vco_scan_kernel<NPT, C>, in[0], in[1], in[2], in[3], in[4],
+      in[5], in[6], in[7], in[8], in[9], in[10], in[11], in[12], in[13],
+      in[14], in[15], in[16], in[17], in[18], in[19], in[20], o[0], o[1],
+      o[2], o[3], o[4], o[5], o[6], o[7], L.n, L.k, L.d, L.N, L.T, L.c);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+template <int C>
+cudaError_t go_npt(int npt, const Launch& L) {
+  switch (npt) {
+    case 1: return go<1, C>(L);
+    case 2: return go<2, C>(L);
+    default: return go<4, C>(L);
+  }
+}
+
+// Fills the launch shape of (n, cluster); false if the kernel has no variant
+// for it.  Neurons per thread: the fewest that keep a CTA of ceil(n / C)
+// neurons within kMaxThreads, at most kMaxNpt (the variants that have run on
+// the card).
+bool shape(int n, int d, int N, int cluster, Launch* L, int* npt) {
+  if (n < 1 || d < 1 || N < 1) return false;
+  if (cluster != 1 && cluster != 4) return false;
+  const int per = (n + cluster - 1) / cluster;
+  int p = 1;
+  while (p < kMaxNpt && (per + p - 1) / p > kMaxThreads) p *= 2;
+  if ((per + p - 1) / p > kMaxThreads) return false;
+  *npt = p;
+  L->threads = ((per + p - 1) / p + 31) / 32 * 32;
+  L->smem = (size_t)(2 * d + N) * sizeof(float);
+  return true;
+}
+
+cudaError_t dispatch(int npt, int cluster, const Launch& L) {
+  return cluster == 1 ? go_npt<1>(npt, L) : go_npt<4>(npt, L);
 }
 
 }  // namespace
@@ -242,31 +439,29 @@ extern "C" {
 //      voltage refractory (n, k), f0 f1 f2 (k), fo (2k)        -- 21 pointers
 // out: rows (T, 2k), voltage refractory (n, k), f0 f1 f2 (k), fo (2k),
 //      scratch (k, 3, T)                                       --  8 pointers
+// cluster: CTAs per oscillator, 1 or 4.
 // Returns 0 or the CUDA error of the launch.
 int vco_scan_launch(const void* const* in, void* const* outp, int n, int k,
                     int d, int N, int T, float a_rec, float b_rec,
                     float a_out, float b_out, float tau_rc, float tau_ref,
-                    float dt, float spike_out, int device, void* stream) {
+                    float dt, float spike_out, int cluster, int device,
+                    void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (n < 1 || k < 1 || T < 1 || d < 1 || N < 1)
+  Launch L{};
+  int npt = 0;
+  if (k < 1 || T < 1 || !shape(n, d, N, cluster, &L, &npt))
     return (int)cudaErrorInvalidValue;
-  const Consts c{a_rec, b_rec, a_out, b_out, tau_rc, tau_ref, dt, spike_out};
-  // the fewest neurons per thread that keep a block within kMaxThreads; at
-  // most kMaxNpt, the variants that have run on the card (n <= 2,048)
-  int npt = 1;
-  while (npt < kMaxNpt && (n + npt - 1) / npt > kMaxThreads) npt *= 2;
-  if ((n + npt - 1) / npt > kMaxThreads) return (int)cudaErrorInvalidValue;
-  const int threads = ((n + npt - 1) / npt + 31) / 32 * 32;
-  const size_t smem = (size_t)(2 * d + N) * sizeof(float);
-  const float* const* fin = reinterpret_cast<const float* const*>(in);
-  float* const* fout = reinterpret_cast<float* const*>(outp);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (npt) {
-    case 1: return (int)launch<1>(threads, smem, s, fin, fout, n, k, d, N, T, c);
-    case 2: return (int)launch<2>(threads, smem, s, fin, fout, n, k, d, N, T, c);
-    default: return (int)launch<4>(threads, smem, s, fin, fout, n, k, d, N, T, c);
-  }
+  L.in = reinterpret_cast<const float* const*>(in);
+  L.out = reinterpret_cast<float* const*>(outp);
+  L.n = n;
+  L.k = k;
+  L.d = d;
+  L.N = N;
+  L.T = T;
+  L.c = Consts{a_rec, b_rec, a_out, b_out, tau_rc, tau_ref, dt, spike_out};
+  L.stream = static_cast<cudaStream_t>(stream);
+  return (int)dispatch(npt, cluster, L);
 }
 
 const char* vco_scan_error_string(int err) {

@@ -14,7 +14,8 @@ projection commute it is v1's (T, d) output as well.
 tensors take the plain version :func:`vco_scan_reference`; CUDA tensors
 launch the kernel or raise.  The kernel is compiled with ``nvcc`` for
 ``sm_90a`` at first use into ``build/torch_kernels/`` beside the package and
-loaded with ``ctypes``.
+loaded with ``ctypes``.  It runs each oscillator on a thread-block cluster
+of C CTAs; :func:`_cluster_size` picks C.
 
 Layouts are the JAX package's: (n, k) neuron slabs and (1, k) rows.  The
 oscillator axis is NOT padded to 128 lanes (that was a rule of the TPU's
@@ -173,9 +174,22 @@ _SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "vco_scan.cu"
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-#: csrc/vco_scan.cu: at most 4 neurons per thread, 512 threads per block
+#: csrc/vco_scan.cu: at most 4 neurons per thread, 512 threads per CTA
 _MAX_NEURONS = 4 * 512
+#: CTAs per oscillator (one thread-block cluster) the kernel is built for
+CLUSTER_SIZES = (1, 4)
 _lib: Optional[ctypes.CDLL] = None
+
+
+def _cluster_size(n: int, k: int, num_sms: int) -> int:
+    """CTAs per oscillator for k oscillators of n neurons on a card with
+    ``num_sms`` SMs: 4 for at most 62 oscillators per 132 SMs (and n >= 4,
+    so no CTA is without a neuron), else 1.
+
+    Measured on an H100 (132 SMs, n = 800; chip_smoke.py's sweep,
+    PERF.md): C = 4 is faster up to k = 62 and slower from k = 63 to 401.
+    Other SM counts scale the edge; that is not measured."""
+    return 4 if 4 <= n and 132 * k <= 62 * num_sms else 1
 
 
 def _nvcc() -> str:
@@ -208,7 +222,7 @@ def _load() -> ctypes.CDLL:
         lib = ctypes.CDLL(build_vco_kernel()[0])
         vp, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.vco_scan_launch.argtypes = ([vp, vp] + [i32] * 5 + [f32] * 8
-                                        + [i32, vp])
+                                        + [i32, i32, vp])
         lib.vco_scan_launch.restype = i32
         lib.vco_scan_error_string.argtypes = [i32]
         lib.vco_scan_error_string.restype = ctypes.c_char_p
@@ -226,7 +240,10 @@ def _check(name, x, shape, device):
 
 
 def _vco_scan_cuda(p: VCOParams, state: VCOState, vel: torch.Tensor,
-                   corr: torch.Tensor) -> Tuple[VCOState, torch.Tensor]:
+                   corr: torch.Tensor, *, cluster: Optional[int] = None
+                   ) -> Tuple[VCOState, torch.Tensor]:
+    """The kernel launch; ``cluster`` (CTAs per oscillator, one of
+    ``CLUSTER_SIZES``) defaults to :func:`_cluster_size`'s choice."""
     device = vel.device
     if torch.cuda.get_device_capability(device) != (9, 0):
         raise RuntimeError(
@@ -239,6 +256,12 @@ def _vco_scan_cuda(p: VCOParams, state: VCOState, vel: torch.Tensor,
         raise ValueError(f"vco_scan: the kernel takes 1..{_MAX_NEURONS} "
                          f"neurons per oscillator and T >= 1 (got n={n}, "
                          f"T={T})")
+    if cluster is None:
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
+        cluster = _cluster_size(n, k, sms)
+    if cluster not in CLUSTER_SIZES:
+        raise ValueError(f"vco_scan: cluster must be one of {CLUSTER_SIZES} "
+                         f"(got {cluster})")
     shapes = {"enc0": (n, k), "enc1": (n, k), "enc2": (n, k),
               "bias": (n, k), "drec0": (n, k), "drec1": (n, k),
               "drec2": (n, k), "dout0": (n, k), "dout1": (n, k),
@@ -263,8 +286,8 @@ def _vco_scan_cuda(p: VCOParams, state: VCOState, vel: torch.Tensor,
     out_ptrs = (ctypes.c_void_p * len(outs))(*(x.data_ptr() for x in outs))
     err = lib.vco_scan_launch(
         in_ptrs, out_ptrs, n, k, d, N, T, p.a_rec, p.b_rec, p.a_out,
-        p.b_out, p.tau_rc, p.tau_ref, p.dt, 1.0 / p.dt, device.index,
-        torch.cuda.current_stream(device).cuda_stream)
+        p.b_out, p.tau_rc, p.tau_ref, p.dt, 1.0 / p.dt, cluster,
+        device.index, torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"vco_scan: kernel launch failed with CUDA error "
                            f"{err}: {lib.vco_scan_error_string(err).decode()}")

@@ -38,7 +38,7 @@ def _rdft_mats_np(d: int):
     return W_re, W_im, M_c, M_s
 
 
-def _rdft_mats(d: int, device="cpu", dtype=torch.float32):
+def _rdft_mats(d: int, device, dtype=torch.float32):
     """(W_re, W_im, M_c, M_s) as tensors on ``device``:
     forward:  Z_j = (W_re @ x)_j + i (W_im @ x)_j   for j in [0, d//2]
     inverse:  x = M_c @ Re(Z) + M_s @ Im(Z)          (conj-symmetric Z)

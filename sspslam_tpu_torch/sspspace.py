@@ -64,9 +64,11 @@ class SSPSpace:
         return data.T
 
     def decode(self, ssp, method="from-set", sampling_method="grid",
-               num_samples=300, samples=None, device="cpu"):
+               num_samples=300, samples=None, *, device):
         """Decode SSPs back to domain points by argmax similarity over a
-        sample bank (``from-set``), as a float32 matmul on ``device``."""
+        sample bank (``from-set``), as a float32 matmul on ``device``
+        (required: the caller names the device, as everywhere in the
+        port)."""
         if method != "from-set":
             raise NotImplementedError(
                 f"decode method {method!r} is not ported yet (from-set only)")

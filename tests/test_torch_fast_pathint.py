@@ -101,7 +101,7 @@ def test_integration_accuracy():
     fpi = FastPathIntegrator(space, 300, seed=3, scaling_factor=scale,
                              chunk_steps=200, device="cpu")
     out = fpi.run(vels, corr)
-    dec = space.decode(out[-1][None, :], num_samples=50)
+    dec = space.decode(out[-1][None, :], num_samples=50, device="cpu")
     assert np.linalg.norm(dec - v * T_steps * 0.001) < ACCURACY_TOL
 
 

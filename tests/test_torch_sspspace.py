@@ -46,7 +46,7 @@ def test_phase_matrix_bitwise(cfg):
 
 @pytest.mark.parametrize("d", [25, 31, 96, 97])
 def test_dft_matrices_bitwise(d):
-    for j, t in zip(jax_vsa._rdft_mats(d), vsa._rdft_mats(d)):
+    for j, t in zip(jax_vsa._rdft_mats(d), vsa._rdft_mats(d, "cpu")):
         assert t.dtype == torch.float32
         assert np.array_equal(t.numpy(), np.asarray(j))
     assert np.array_equal(vsa.to_fourier_matrix(d),
@@ -91,7 +91,7 @@ def test_decode_from_set_same_points(cfg):
     x = rng.uniform(-1, 1, size=(20, js.domain_dim))
     ssps = js.encode(x) + 0.05 * rng.normal(size=(20, js.ssp_dim))
     jp = js.decode(ssps, method="from-set", num_samples=40)
-    tp = ts.decode(ssps, method="from-set", num_samples=40)
+    tp = ts.decode(ssps, method="from-set", num_samples=40, device="cpu")
     assert tp.shape == jp.shape == (20, js.domain_dim)
     assert np.array_equal(tp, jp)
     # most decoded grid points are near the encoded ones (a noisy SSP of a
@@ -111,4 +111,14 @@ def test_sample_bank_bitwise():
 def test_decode_other_methods_not_ported():
     _, ts = _pair(*SPACES[0])
     with pytest.raises(NotImplementedError):
-        ts.decode(np.zeros((1, ts.ssp_dim)), method="direct-optim")
+        ts.decode(np.zeros((1, ts.ssp_dim)), method="direct-optim",
+                  device="cpu")
+
+
+def test_decode_and_dft_matrices_need_a_device():
+    """Nothing in the port picks a device by itself: the caller names it."""
+    _, ts = _pair(*SPACES[0])
+    with pytest.raises(TypeError, match="device"):
+        ts.decode(np.zeros((1, ts.ssp_dim)), num_samples=10)
+    with pytest.raises(TypeError, match="device"):
+        vsa._rdft_mats(31)

@@ -164,6 +164,34 @@ def test_cpu_tensors_take_the_plain_version(setup):
     assert vs.vco_scan.launches == before
 
 
+@pytest.mark.parametrize("n, k, num_sms, want", [
+    (800, 49, 132, 4),    # the main path: 196 CTAs, at most two per SM
+    (32, 49, 132, 4),     # the per-step floor's width
+    (800, 62, 132, 4),    # the last k at which clusters of 4 measured faster
+    (800, 63, 132, 1),    # k > 62: one CTA per oscillator
+    (800, 53, 114, 4),    # the same edge on 114 SMs
+    (800, 54, 114, 1),
+    (800, 101, 132, 1),   # 3-D ssp_dim 201
+    (800, 401, 132, 1),   # 3-D ssp_dim 801
+    (3, 49, 132, 1),      # no CTA without a neuron
+    (1, 13, 132, 1),
+])
+def test_cluster_size(n, k, num_sms, want):
+    assert vs._cluster_size(n, k, num_sms) == want
+    assert want in vs.CLUSTER_SIZES
+
+
+def test_cpu_path_never_builds_the_kernel(setup, monkeypatch):
+    def refuse(*args, **kwargs):
+        raise AssertionError("the CPU path reached the CUDA kernel")
+    for name in ("build_vco_kernel", "_load", "_vco_scan_cuda"):
+        monkeypatch.setattr(vs, name, refuse)
+    _, _, tfpi, vels, corr = setup
+    _, y = vs.vco_scan(tfpi.params, tfpi.initial_state(),
+                       torch.tensor(vels), torch.tensor(corr))
+    assert y.shape == (T, tfpi.d) and y.device.type == "cpu"
+
+
 def test_chunks_carry_state(setup):
     _, _, tfpi, vels, corr = setup
     state = tfpi.initial_state()
