@@ -42,10 +42,34 @@ result line):
    every chunk end the two decoded positions must lie within 0.1 of each
    other (a third of the length scale 0.3);
 7. accuracy: the constant-velocity integration test at full width (decode
-   error < 0.25 after 800 steps).
+   error < 0.25 after 800 steps);
+8. the generic engine: ``nef.Simulator`` at full width on ``bench.py
+   --model pi``'s traffic (the same velocities as phase 5, PathIntegration
+   built from the same seed, LIF): its CUDA-graph replay against its eager
+   step over the first 2,000 steps (max-abs <= 1e-6), CUDA kernels per
+   step from one ``torch.profiler`` pass over 100 eager steps (and the
+   device's busy share over 100 replayed steps), steps/s for graphs of
+   U = 1, 10 and 100 steps and for eager stepping (one 10,000-step warm-up
+   segment, then 50,000 timed steps each), every U's trace equal to the
+   first's, and the decoded positions of the Simulator's trace and the fast
+   path's trace of phase 5 within 0.1 of each other at every 10,000-step
+   boundary.  This path launches no hand-written kernel (the JAX engine
+   reaches no Pallas kernel); the VCO kernel's count over it must stay 0.
+   Then the Simulator's bookkeeping through graphs against the CPU's eager
+   stepping on a small PES network (segment remainders, sparse snapshots,
+   thinning, streamed and preloaded inputs, a learning rate changed in
+   place, a checkpoint of the card's run continued on the CPU), within
+   1e-4;
+9. the constant-velocity accuracy gate through the Simulator at full width
+   (decode error < 0.25 after 800 steps);
+10. ``python -m sspslam_tpu_torch.experiments.run_pathint`` at its defaults
+   (T = 20 s, ssp_dim 97, 800 LIF per VCO) as a subprocess: it must exit 0
+   and print finite errors (printed, not gated: path integration alone
+   drifts).
 
-The last three lines of standard output are the card's name and power
-limit, one JSON object describing the kernel, and the result line.
+The last four lines of standard output are one JSON object of the
+Simulator's numbers, the card's name and power limit, one JSON object
+describing the kernel, and the result line.
 
 To compare the kernel of two checkouts on one card, time each in turns
 within one command (the other commit unpacked into a git-ignored
@@ -82,6 +106,9 @@ SHORT_TOL = 2e-4      # max-abs over 40 steps (tests/test_pallas.py bound)
 LONG_MEDIAN_TOL = 2e-3  # median |diff| over one 2,000- or 10,000-step chunk
 DRIFT_TOL = 0.1       # decoded-position difference, two kernels, whole run
 ACCURACY_TOL = 0.25   # decode error after 800 steps at constant velocity
+GRAPH_UNITS = (1, 10, 100)  # steps per captured CUDA graph, timed in turn
+REPLAY_TOL = 1e-6     # graph replay vs eager step, max-abs over LONG steps
+PROFILE_STEPS = 100
 SWEEP = (1, 4, 4, 1)
 SWEEP_REPEATS = 3
 TIME_REPEATS = 5
@@ -499,6 +526,292 @@ def accuracy(space_cls, fpi_cls):
         raise AssertionError(f"integration error {err} >= {ACCURACY_TOL}")
 
 
+def pi_simulator(space, vels, scaling_factor=1.0, corrections=None,
+                 seed=SEED):
+    """``bench.py --model pi``'s network on the port's Simulator: the
+    velocity table into PathIntegration (LIF), the output probed through a
+    50 ms lowpass; ``corrections`` (T, d) feed the SSP input if given."""
+    from sspslam_tpu_torch.models import PathIntegration
+    from sspslam_tpu_torch.nef import (Connection, Network, Node, Probe,
+                                       Simulator, TimeTable)
+    with Network(seed=seed) as net:
+        vel = Node(TimeTable(vels))
+        pi = PathIntegration(space, N_NEURONS, 0.05,
+                             scaling_factor=scaling_factor)
+        Connection(vel, pi.velocity_input, synapse=None)
+        if corrections is not None:
+            Connection(Node(TimeTable(corrections)), pi.input, synapse=None)
+        probe = Probe(pi.output, synapse=0.05)
+    return Simulator(net, seed=seed, device="cuda"), probe
+
+
+def timed_run(sim, probe, steps=TIMED):
+    """One CHUNK-step warm-up segment (graph capture included), then
+    ``steps`` timed steps in CHUNK-step segments; returns (steps/s, the
+    whole trace)."""
+    sim.reset()
+    sim.preload_inputs(CHUNK + steps)
+    sim.run_steps(CHUNK, segment_steps=CHUNK)
+    sim.sync()
+    t0 = time.perf_counter()
+    sim.run_steps(steps, segment_steps=CHUNK)
+    sim.sync()
+    rate = steps / (time.perf_counter() - t0)
+    return rate, sim.data[probe]
+
+
+def profile_steps(sim, eager):
+    """CUDA kernels and device busy time per step over PROFILE_STEPS steps
+    (one torch.profiler pass after a warm-up): kernels, device events and
+    busy us per step, the busy share of the profiled window, and the six
+    kernels that took the most device time (name, us and calls per
+    step)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    sim.reset()
+    sim._eager = eager
+    sim.preload_inputs(2 * PROFILE_STEPS)
+    sim.run_steps(PROFILE_STEPS, segment_steps=PROFILE_STEPS)
+    sim.sync()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        sim.run_steps(PROFILE_STEPS, segment_steps=PROFILE_STEPS)
+        sim.sync()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    sim._eager = False
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    kernels = [e for e in dev if not e.name.startswith(("Memcpy", "Memset"))]
+    busy_us = sum(e.time_range.elapsed_us() for e in dev)
+    by_name = {}
+    for e in kernels:
+        us, calls = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (us + e.time_range.elapsed_us(), calls + 1)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]
+    top = [(name[:80], us / PROFILE_STEPS, calls / PROFILE_STEPS)
+           for name, (us, calls) in top]
+    return (len(kernels) / PROFILE_STEPS, len(dev) / PROFILE_STEPS,
+            busy_us / PROFILE_STEPS, busy_us / wall_us, top)
+
+
+def simulator_path(space, vco, fast_trace):
+    """Phase 8: the generic engine at full width on bench.py --model pi's
+    traffic.  Returns the numbers of the Simulator's JSON line."""
+    vels = traffic()
+    t0 = time.perf_counter()
+    sim, probe = pi_simulator(space, vels)
+    n = sum(be.k * be.n if be.batched else be.n for be in sim.model.ensembles)
+    log(f"Simulator build (d={space.ssp_dim}, {n} neurons): "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    # graph replay vs the eager step, same inputs and state
+    traces = {}
+    for eager in (False, True):
+        sim.reset()
+        sim._eager = eager
+        sim.preload_inputs(LONG)
+        sim.run_steps(LONG, segment_steps=LONG)
+        traces[eager] = sim.data[probe]
+    sim._eager = False
+    replay_err = float(np.abs(traces[False] - traces[True]).max())
+    log(f"Simulator: graph replay vs eager step, {LONG} steps: max-abs "
+        f"{replay_err:.3e} (tol {REPLAY_TOL})")
+    if not replay_err <= REPLAY_TOL:
+        raise AssertionError(f"graph replay differs from the eager step: "
+                             f"{replay_err}")
+
+    k_eager, ev_eager, busy_eager, share_eager, _ = profile_steps(sim, True)
+    k_graph, _, busy_graph, share_graph, top = profile_steps(sim, False)
+    log(f"Simulator profile over {PROFILE_STEPS} steps: eager {k_eager:.2f} "
+        f"kernels per step ({ev_eager:.2f} device events), device busy "
+        f"{busy_eager:.1f} us per step = {share_eager * 100:.1f} % of the "
+        f"profiled wall time; graph replay {k_graph:.2f} kernels per step, "
+        f"busy {busy_graph:.1f} us per step = {share_graph * 100:.1f} %")
+    for name, us, calls in top:
+        log(f"  graph replay, per step: {us:6.2f} us in {calls:.2f} x {name}")
+
+    # steps/s: graphs of U steps, then eager; the main path's window
+    rates, first = {}, None
+    vco.vco_scan.launches = 0
+    for U in GRAPH_UNITS:
+        sim._graph_steps = U
+        rates[U], trace = timed_run(sim, probe)
+        log(f"Simulator, graphs of {U} steps: {rates[U]:.0f} steps/s over "
+            f"{TIMED} steps")
+        if first is None:
+            first = trace
+        elif not np.array_equal(trace, first):
+            raise AssertionError(f"the trace with graphs of {U} steps "
+                                 f"differs from the first")
+    launches = vco.vco_scan.launches
+    if launches != 0:
+        raise AssertionError(f"the Simulator path launched vco_scan "
+                             f"{launches} times")
+    best = max(rates, key=rates.get)
+    sim._graph_steps = best
+    sim._eager = True
+    eager_rate, _ = timed_run(sim, probe)
+    sim._eager = False
+    log(f"Simulator, eager: {eager_rate:.0f} steps/s over {TIMED} steps; "
+        f"fastest graph length {best} steps")
+
+    # against the fast path's trace of the same velocities (phase 5)
+    if first.shape != fast_trace.shape or not np.all(np.isfinite(first)):
+        raise AssertionError(f"Simulator trace {first.shape} is not finite "
+                             f"or not the fast path's shape "
+                             f"{fast_trace.shape}")
+    ends = []
+    for lo in range(0, CHUNK + TIMED, CHUNK):
+        a, b = first[lo:lo + CHUNK], fast_trace[lo:lo + CHUNK]
+        dist = float(np.linalg.norm(decode(space, a[-1]) - decode(space, b[-1])))
+        ends.append(dist)
+        log(f"Simulator vs fast path, steps {lo}..{lo + CHUNK}: median "
+            f"|diff| {float(np.median(np.abs(a - b))):.3e}, decoded position "
+            f"difference at the chunk end {dist:.4f} (tol {DRIFT_TOL})")
+    if not max(ends) <= DRIFT_TOL:
+        raise AssertionError(f"Simulator and fast path decode {max(ends)} "
+                             f"apart > {DRIFT_TOL}")
+    return {"neurons": n, "graph_vs_eager_max_abs": replay_err,
+            "steps_per_s_by_graph_steps": {str(U): r
+                                           for U, r in rates.items()},
+            "graph_steps_fastest": best, "steps_per_s_eager": eager_rate,
+            "kernels_per_step_eager": k_eager,
+            "kernels_per_step_graph": k_graph,
+            "device_busy_us_per_step_eager": busy_eager,
+            "device_busy_share_eager": share_eager,
+            "device_busy_us_per_step_graph": busy_graph,
+            "device_busy_share_graph": share_graph,
+            "top_kernels_graph": top,
+            "vco_scan_launches": launches,
+            "vs_fast_path_decoded_diff": ends}
+
+
+def _semantics_net(nef):
+    """A PES network of rate neurons with a subsampled dense probe and a
+    sparse weights probe: every kind of bookkeeping the Simulator does."""
+    tab = np.sin(np.linspace(0, 8, 700, dtype=np.float32))[:, None]
+    with nef.Network(seed=0) as net:
+        inp = nef.Node(nef.TimeTable(tab))
+        a = nef.Ensemble(60, 1, neuron_type=nef.LIFRate())
+        out = nef.Node(size_in=1)
+        nef.Connection(inp, a, synapse=None)
+        c = nef.Connection(a, out, function=lambda x: x * 0,
+                           learning_rule_type=nef.PES(1e-3), synapse=0.01)
+        nef.Connection(inp, c.learning_rule, transform=-1, synapse=0.005)
+        nef.Connection(out, c.learning_rule, synapse=0.005)
+        dense = nef.Probe(out, synapse=0.01, sample_every=0.007)
+        sparse = nef.Probe(c, attr="weights", sample_every=0.1)
+    return net, (dense, sparse)
+
+
+def simulator_semantics():
+    """The Simulator's bookkeeping through CUDA graphs against the same
+    network stepped eagerly on the CPU, with the same calls: runs of
+    130, 170 and 333 steps in segments of 64 (graph remainders, sparse
+    clips, the global thinning phase), inputs streamed and then preloaded,
+    the learning rate zeroed in place between runs (no recapture), and a
+    checkpoint of the card's run continued on the CPU.  Returns the
+    largest difference, relative to max(|probe|, 1)."""
+    import tempfile
+    from sspslam_tpu_torch import nef
+    worst = 0.0
+
+    def make(device):
+        net, probes = _semantics_net(nef)
+        return nef.Simulator(net, seed=0, device=device), probes
+
+    def compare(card, host, what, rows=None):
+        nonlocal worst
+        for pc, ph in zip(card[1], host[1]):
+            y = host[0].data[ph]
+            x = card[0].data[pc][-len(y):] if rows == "tail" \
+                else card[0].data[pc]
+            if x.shape != y.shape:
+                raise AssertionError(f"{what}: shapes {x.shape}, {y.shape}")
+            err = float(np.abs(x - y).max()) / max(float(np.abs(y).max()), 1)
+            worst = max(worst, err)
+            if not err <= 1e-4:
+                raise AssertionError(f"{what}: card vs CPU {err}")
+
+    for preload in (False, True):
+        pair = [make("cuda"), make("cpu")]
+        for sim, _ in pair:
+            if preload:
+                sim.preload_inputs(633)
+            sim.run_steps(130, segment_steps=64)
+            sim.run_steps(170, segment_steps=64)
+            slot = next(bc.learned_slot for bc in sim.model.connections
+                        if bc.pes_rule is not None)
+            sim.params["hyper"]["lr"][slot].zero_()
+            sim.run_steps(333, segment_steps=64)
+        compare(*pair, f"semantics, preload={preload}")
+        weights = pair[0][0].data[pair[0][1][1]]   # steps 100, 200, ... 600
+        if not np.array_equal(weights[-1], weights[-4]):
+            raise AssertionError("a zeroed learning rate still learned")
+    card, host = make("cuda"), make("cpu")
+    card[0].run_steps(250, segment_steps=64)
+    with tempfile.TemporaryDirectory() as tmp:
+        ck = str(Path(tmp) / "ck.npz")
+        card[0].save_checkpoint(ck)
+        host[0].load_checkpoint(ck)
+    for sim, _ in (card, host):
+        sim.run_steps(150, segment_steps=64)
+    compare(card, host, "checkpoint continued", rows="tail")
+    log(f"Simulator semantics, card (graphs) vs CPU (eager): largest "
+        f"difference {worst:.3e} (tol 1e-4)")
+    return worst
+
+
+def simulator_accuracy(space_cls):
+    """Phase 9: the constant-velocity gate of phase 7 through the
+    Simulator."""
+    space = make_space(space_cls)
+    v = np.array([0.2, -0.1])
+    scale = 1 / np.max(np.abs(space.phase_matrix @ v.reshape(2, 1)))
+    T = 800
+    vels = np.tile(v * scale, (T, 1)).astype(np.float32)
+    corr = np.zeros((T, space.ssp_dim), np.float32)
+    corr[:50] = space.encode(np.zeros((1, 2))).ravel()
+    sim, probe = pi_simulator(space, vels, scaling_factor=scale,
+                              corrections=corr, seed=3)
+    sim.run_steps(T)
+    out = sim.data[probe]
+    dec = space.decode(out[-1][None, :], num_samples=50, device="cuda")
+    err = float(np.linalg.norm(dec - v * T * 0.001))
+    log(f"Simulator: constant-velocity decode error after {T} steps: "
+        f"{err:.4f} (tol {ACCURACY_TOL})")
+    if not err < ACCURACY_TOL:
+        raise AssertionError(f"Simulator integration error {err} >= "
+                             f"{ACCURACY_TOL}")
+    return err
+
+
+def run_pathint_cli():
+    """Phase 10: the port's run_pathint at its defaults, as a user runs
+    it; returns (final error, median error, seconds)."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "sspslam_tpu_torch.experiments.run_pathint"],
+        cwd=Path(__file__).resolve().parent, capture_output=True, text=True,
+        timeout=600)
+    seconds = time.perf_counter() - t0
+    for line in proc.stdout.splitlines():
+        if not line.startswith("  sim "):
+            log(f"  run_pathint: {line.strip()}")
+    if proc.returncode != 0:
+        raise AssertionError(f"run_pathint exited {proc.returncode}: "
+                             f"{proc.stderr[-2000:]}")
+    line = next(l for l in proc.stdout.splitlines()
+                if l.startswith("final distance error"))
+    final, median = (float(x) for x in
+                     line.replace(";", "").split()[3::2])
+    if not (np.isfinite(final) and np.isfinite(median)):
+        raise AssertionError(f"run_pathint printed {line!r}")
+    log(f"run_pathint: exit 0 in {seconds:.1f} s; final error {final}, "
+        f"median {median} (printed, not gated)")
+    return final, median, seconds
+
+
 def time_checkout(root: str) -> None:
     """``--time ROOT``: ms per CHUNK-step chunk of the ``vco_scan`` of the
     checkout at ``root``, at the cluster size it picks, on the main path's
@@ -585,11 +898,20 @@ def main() -> int:
     # 7. accuracy
     accuracy(HexagonalSSPSpace, FastPathIntegrator)
 
+    # 8-10. the generic engine
+    simulator = simulator_path(space, vco, trace)
+    simulator["semantics_vs_cpu"] = simulator_semantics()
+    simulator["accuracy_error"] = simulator_accuracy(HexagonalSSPSpace)
+    final, median, seconds = run_pathint_cli()
+    simulator["run_pathint"] = {"final_error": final, "median_error": median,
+                                "seconds": seconds}
+
     ms = float(np.mean(full[chosen]))
     b_ms, b_by = bound_ms(fpi.n, fpi.k, fpi.d, fpi.N, CHUNK, spikes)
     log(f"bound per {CHUNK}-step chunk ({spikes} spikes): {b_ms:.4f} ms "
         f"({b_by}); kernel {ms:.3f} ms = {b_ms / ms * 100:.2f} % of its "
         f"bound")
+    print(json.dumps({"simulator": simulator}), flush=True)
     log(nvidia_smi())
     print(json.dumps({"kernels": [{
         "name": "vco_scan", "route": "cuda",
@@ -605,7 +927,9 @@ def main() -> int:
             width: {str(C): t for C, t in times.items()}
             for width, times in swept.items()},
         "whole_run_vs_cluster": other,
-        "whole_run_decoded_diff": ends}]}))
+        "whole_run_decoded_diff": ends,
+        "launched_by": ["FastPathIntegrator.run (phase 5, bench.py --model "
+                        "pi-fast traffic)"]}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

@@ -6,7 +6,8 @@ builds a regular :class:`PathIntegration` network through the port's NEF
 builder (so encoders, gains, biases and decoders come from the same solver
 pipeline as the generic path), then runs the VCO-bank dynamics chunk by
 chunk through :func:`sspslam_tpu_torch.ops.vco_scan.vco_scan`: the CUDA
-kernel on a CUDA device, its plain PyTorch version on the CPU.
+kernel on a CUDA device (the default; without a card it raises), its plain
+PyTorch version on the CPU (``device="cpu"``).
 """
 
 from __future__ import annotations
@@ -30,7 +31,8 @@ class FastPathIntegrator:
     def __init__(self, ssp_space, n_neurons, recurrent_tau=0.05,
                  scaling_factor=1.0, stable=True, max_radius=1.0,
                  tau_probe=0.05, seed: Optional[int] = 0,
-                 chunk_steps: int = 1000, dt: float = 0.001, *, device):
+                 chunk_steps: int = 1000, dt: float = 0.001, *,
+                 device="cuda"):
         device = torch.device(device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("FastPathIntegrator: device='cuda' but no "

@@ -95,7 +95,6 @@ class PathIntegration(Network):
             self.velocity_input = Node(size_in=N, label=f"{label}_vel_input")
             self.input = Node(size_in=d, label=f"{label}_input")
             if with_gcs:
-                # sample_grid_encoders is not ported yet
                 encoders = ssp_space.sample_grid_encoders(n_gcs)
                 self.output = Ensemble(
                     n_gcs, d, encoders=encoders,

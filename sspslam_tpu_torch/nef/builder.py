@@ -10,8 +10,8 @@ eval points in both packages.
 
 The one device-dependent step is the decoder solve of large ensembles
 (:mod:`.solvers`), which runs in float32 torch on the ``device`` passed to
-:func:`build` and leaves those decoders there as tensors.  The executor that
-steps a built :class:`Model` is not ported yet.
+:func:`build` and leaves those decoders there as tensors.
+:mod:`.executor` steps a built :class:`Model`.
 """
 
 from __future__ import annotations

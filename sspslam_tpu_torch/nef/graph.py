@@ -14,6 +14,18 @@ Differences from nengo:
 * ``Node`` outputs are either data (tabulated to a device array indexed by
   the step counter) or tensor functions ``f(t, x)`` computed inside the
   step — there are no host callbacks inside the hot loop.
+
+Callables the step evaluates — node outputs of ``(t, x)``, stateful node
+outputs ``(t, x, state[, consts])``, and the ``function`` of a connection
+from a Node — receive torch tensors on the Simulator's device (``t`` is a
+0-d tensor) and must return tensors there (or values ``torch.as_tensor``
+takes).  They must not synchronise with the host: no ``.item()``,
+``float()``, ``bool()`` or ``if`` on a tensor, no NumPy on a tensor, no
+data-dependent shapes; on a CUDA device the step is captured in a CUDA
+graph, where any of these fails.  Callables of ``t`` alone are tabulated on
+the host before the run, as in the JAX package, and may use NumPy freely.
+A connection ``function`` from an Ensemble is only evaluated at build time,
+on NumPy eval points.
 """
 
 from __future__ import annotations

@@ -1,9 +1,11 @@
 """Vector-symbolic-algebra primitives on torch tensors.
 
-Port of the parts of :mod:`sspslam_tpu.ops.vsa` that path integration and
-SSP construction use: the real half-spectrum DFT matrices, SSP encoding,
-the conjugate-symmetric phase expansion and the SSP <-> VCO-triple Fourier
-layouts.  The DFT stays a matmul, as in the JAX package, so both packages
+Port of the parts of :mod:`sspslam_tpu.ops.vsa` that path integration,
+SSP construction and the binding networks use: the real half-spectrum DFT
+matrices, SSP encoding, the binding algebra (bind, unbind, invert,
+normalize, make_unitary, the identity), the conjugate-symmetric phase
+expansion, the neural circular convolution's transforms and the SSP <->
+VCO-triple Fourier layouts.  The DFT stays a matmul, as in the JAX package, so both packages
 hold the same float32 matrices bitwise; ``torch.fft`` is a later
 measurement, not a given.
 
@@ -19,8 +21,11 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-__all__ = ["encode", "rfft_pair", "irfft_pair", "conjsym",
-           "to_fourier_matrix", "from_fourier_matrix"]
+__all__ = ["encode", "rfft_pair", "irfft_pair", "bind", "unbind", "invert",
+           "normalize", "make_unitary", "identity_vector", "conjsym",
+           "dft_half_matrices", "binding_input_transforms",
+           "binding_output_transform", "to_fourier_matrix",
+           "from_fourier_matrix"]
 
 
 @lru_cache(maxsize=64)
@@ -75,6 +80,56 @@ def encode(phase_matrix, x: torch.Tensor, length_scale) -> torch.Tensor:
     return irfft_pair(torch.cos(phases), torch.sin(phases), d)
 
 
+# ---------------------------------------------------------------------------
+# Binding algebra (circular convolution)
+# ---------------------------------------------------------------------------
+
+def bind(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Circular convolution a * b along the last axis, as real
+    half-spectrum matmuls."""
+    d = a.shape[-1]
+    ar, ai = rfft_pair(a)
+    br, bi = rfft_pair(b)
+    return irfft_pair(ar * br - ai * bi, ar * bi + ai * br, d)
+
+
+def unbind(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Circular correlation: bind with the involution of ``a`` (conj in
+    Fourier)."""
+    d = a.shape[-1]
+    ar, ai = rfft_pair(a)
+    br, bi = rfft_pair(b)
+    return irfft_pair(ar * br + ai * bi, ar * bi - ai * br, d)
+
+
+def invert(a: torch.Tensor) -> torch.Tensor:
+    """Involution a[-i mod d]: the binding inverse for unitary vectors."""
+    d = a.shape[-1]
+    idx = torch.as_tensor((-np.arange(d)) % d, device=a.device)
+    return a[..., idx]
+
+
+def normalize(v: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
+    """Scale to unit L2 norm (safe at 0)."""
+    nrm = torch.sqrt(torch.sum(v * v, dim=-1, keepdim=True))
+    return v / torch.clamp_min(nrm, eps)
+
+
+def make_unitary(v: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
+    """Project all Fourier coefficients onto the unit circle."""
+    d = v.shape[-1]
+    re, im = rfft_pair(v)
+    mag = torch.clamp_min(torch.sqrt(re * re + im * im), eps)
+    return irfft_pair(re / mag, im / mag, d)
+
+
+def identity_vector(d: int, dtype=torch.float32, *, device) -> torch.Tensor:
+    """Binding identity: delta at index 0, on ``device``."""
+    v = torch.zeros((d,), dtype=dtype, device=device)
+    v[0] = 1.0
+    return v
+
+
 def conjsym(K: np.ndarray) -> np.ndarray:
     """Expand (m, n) free phases into a (2m+1, n) conjugate-symmetric phase
     matrix: row 0 zero, rows 1..m = K, rows m+1..2m = -flip(K)."""
@@ -84,6 +139,65 @@ def conjsym(K: np.ndarray) -> np.ndarray:
     F[1 : m + 1] = K
     F[m + 1 :] = -np.flip(K, axis=0)
     return F
+
+
+# ---------------------------------------------------------------------------
+# Fixed linear transforms for the *neural* binding network
+# ---------------------------------------------------------------------------
+# The neural CircularConvolution computes DFT(a)*DFT(b) with four real
+# product channels per retained frequency (Gosmann alignment):
+#   channels per freq i: w=ReF*ReG, x=ImF*ImG, y=ReF*ImG, z=ImF*ReG
+#   Re H[i] = w - x ; Im H[i] = y + z
+# Input transform A rows per freq: [ReF, ImF, ReF, ImF]
+# Input transform B rows per freq: [ReG, ImG, ImG, ReG]
+# Output transform folds (w,x,y,z) -> real IDFT.
+
+def dft_half_matrices(d: int):
+    """Real/imag parts of the half-spectrum DFT matrix, shape (d//2+1, d)."""
+    x = np.arange(d)
+    w = np.arange(d // 2 + 1)
+    M = np.exp((-2.0j * np.pi / d) * np.outer(w, x))
+    return M.real, M.imag
+
+
+def binding_input_transforms(d: int, invert_a: bool = False,
+                             invert_b: bool = False):
+    """(tr_a, tr_b), each (4*(d//2+1), d): map inputs into aligned
+    half-spectrum product channels. ``invert_*`` conjugates that operand
+    (circular correlation)."""
+    re, im = dft_half_matrices(d)
+    im_a = -im if invert_a else im
+    im_b = -im if invert_b else im
+    h = d // 2 + 1
+    tr_a = np.zeros((4 * h, d))
+    tr_b = np.zeros((4 * h, d))
+    tr_a[0::4] = re
+    tr_a[1::4] = im_a
+    tr_a[2::4] = re
+    tr_a[3::4] = im_a
+    tr_b[0::4] = re
+    tr_b[1::4] = im_b
+    tr_b[2::4] = im_b
+    tr_b[3::4] = re
+    return tr_a, tr_b
+
+
+def binding_output_transform(d: int) -> np.ndarray:
+    """(d, 4*(d//2+1)) matrix folding product channels through the inverse
+    DFT: out = (1/d) * sum_i c_i * (ReW_i*ReH_i - ImW_i*ImH_i), where W is
+    the half DFT and c_i = 1 for i == 0 (and i == d/2 for even d), else 2."""
+    re, im = dft_half_matrices(d)
+    h = d // 2 + 1
+    coef = np.full(h, 2.0)
+    coef[0] = 1.0
+    if d % 2 == 0:
+        coef[-1] = 1.0
+    out = np.zeros((d, 4 * h))
+    out[:, 0::4] = (coef * re.T) / d          # w  (Re channel, +)
+    out[:, 1::4] = -(coef * re.T) / d         # x  (Re channel, -)
+    out[:, 2::4] = (coef * im.T) / d          # y  (Im channel)
+    out[:, 3::4] = (coef * im.T) / d          # z
+    return out
 
 
 # The path integrator represents the SSP in the Fourier domain as

@@ -1,27 +1,106 @@
 """Spatial Semantic Pointer (SSP) representation spaces.
 
 Port of the parts of :mod:`sspslam_tpu.sspspace` that path integration
-needs: ``SSPSpace`` (encode, ``decode(method="from-set")``, the domain
-sample banks) and ``HexagonalSSPSpace``.  Phase matrices are built by the
+needs: ``SPSpace``, ``SSPSpace`` (encode, ``decode(method="from-set")``, the
+domain sample banks), ``RandomSSPSpace``, ``HexagonalSSPSpace`` and
+``RectangularSSPSpace`` with ``sample_grid_encoders``.  Phase matrices are built by the
 same NumPy code from the same ``numpy.random.Generator`` stream, so a space
 made from one seed is bitwise equal in both packages.
 
 Host-facing methods take and return NumPy arrays, as in the JAX package;
 the from-set decode runs its similarity matmul in float32 torch on the
 ``device`` it is given.  Not ported yet: ``direct-optim`` and the MLP
-decoder, ``SPSpace``, ``RandomSSPSpace``, ``RectangularSSPSpace``.
+decoder.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+from scipy.special import gammainc
 from scipy.stats import qmc, special_ortho_group
 
 from .ops.vsa import conjsym
-from .utils.sampling import Rd_sampling
+from .utils.sampling import Rd_sampling, uniform_hypersphere
 
-__all__ = ["SSPSpace", "HexagonalSSPSpace"]
+__all__ = ["SPSpace", "SSPSpace", "RandomSSPSpace", "HexagonalSSPSpace",
+           "RectangularSSPSpace"]
+
+
+class SPSpace:
+    """Discrete symbol vocabulary of near-orthogonal unitary vectors, on the
+    host in NumPy (as in the JAX package): ``domain_size`` unitary vectors
+    (Gram-Schmidt orthogonalised), binding via circular convolution,
+    inversion via the index involution."""
+
+    def __init__(self, domain_size: int, dim: int, seed=None, vectors=None,
+                 **kwargs):
+        self.domain_size = int(domain_size)
+        self.dim = int(dim)
+        rng = (np.random.RandomState(seed) if seed is not None
+               else np.random.RandomState())
+        self.rng = rng
+
+        if self.domain_size == 1:
+            self.vectors = np.zeros((1, self.dim))
+            self.vectors[:, 0] = 1
+        elif vectors is not None:
+            self.vectors = np.asarray(vectors, dtype=np.float64)
+        else:
+            v = uniform_hypersphere(self.domain_size, self.dim, rng,
+                                    surface=True)
+            v = self._np_make_unitary(v)
+            # Gram-Schmidt style pass to reduce cross-talk between symbols
+            for j in range(self.domain_size):
+                q = v[j] / np.linalg.norm(v[j])
+                for k in range(j + 1, self.domain_size):
+                    v[k] = v[k] - (q @ v[k]) * q
+            self.vectors = v
+        self.inverse_vectors = self.invert(self.vectors)
+
+    def encode(self, i):
+        i = np.asarray(i).reshape(-1).astype(int)
+        return self.vectors[i]
+
+    @staticmethod
+    def _np_make_unitary(v):
+        fv = np.fft.fft(np.atleast_2d(v), axis=1)
+        fv = fv / np.maximum(np.sqrt(fv.real**2 + fv.imag**2), 1e-12)
+        return np.fft.ifft(fv, axis=1).real
+
+    def decode(self, v, **kwargs):
+        sims = self.vectors @ np.atleast_2d(v).T
+        return np.argmax(sims, axis=0)
+
+    def clean_up(self, v, **kwargs):
+        return self.vectors[self.decode(v)]
+
+    def normalize(self, v):
+        return v / np.sqrt(np.sum(v**2))
+
+    def make_unitary(self, v):
+        return self._np_make_unitary(v)
+
+    def identity(self):
+        s = np.zeros(self.dim)
+        s[0] = 1
+        return s
+
+    def bind(self, a, b):
+        a = np.atleast_2d(a)
+        b = np.atleast_2d(b)
+        return np.fft.ifft(np.fft.fft(a, axis=1) * np.fft.fft(b, axis=1),
+                           axis=1).real
+
+    def invert(self, a):
+        a = np.atleast_2d(a)
+        return a[:, -np.arange(self.dim)]
+
+    def get_binding_matrix(self, v):
+        """Circulant matrix C(v) with C(v) @ w == bind(v, w)."""
+        v = np.asarray(v).reshape(-1)
+        i = np.arange(self.dim)
+        return v[(i[:, None] - i[None, :]) % self.dim]
 
 
 class SSPSpace:
@@ -146,6 +225,37 @@ def _decode_from_set(sample_ssps, sample_points, unit_ssp):
     return sample_points[torch.argmax(sims, dim=0)]
 
 
+class RandomSSPSpace(SSPSpace):
+    """SSP space with random phase rows (uniform-in-ball or Gaussian)."""
+
+    def __init__(self, domain_dim: int, ssp_dim: int, domain_bounds=None,
+                 scale_min=0.25, scale_max=2.0, length_scale=1,
+                 rng=None, seed=None, sampler="unif", norm_scale=None,
+                 **kwargs):
+        if rng is None:
+            rng = np.random.default_rng(seed)
+        n_samples = (ssp_dim - 1) // 2
+        if sampler == "unif":
+            samples = rng.normal(size=(n_samples, domain_dim))
+            ssq = np.sum(samples**2, axis=1)
+            fr = (scale_max
+                  * gammainc(domain_dim / 2, ssq / 2) ** (1 / domain_dim)
+                  / np.sqrt(ssq))
+            phases = samples * fr[:, None]
+        elif sampler == "norm":
+            if norm_scale is None:
+                norm_scale = np.sqrt(np.pi / 2) * (
+                    (scale_max - scale_min) / 2 + scale_min)
+            phases = rng.normal(loc=0.0, scale=norm_scale,
+                                size=(n_samples, domain_dim))
+        else:
+            raise ValueError(f"unknown sampler {sampler!r}")
+        phase_matrix = conjsym(phases)
+        super().__init__(domain_dim, phase_matrix.shape[0], phase_matrix,
+                         domain_bounds=domain_bounds,
+                         length_scale=length_scale, rng=rng)
+
+
 def _scales_for(scale_sampling, scale_min, scale_max, n_scales, rng):
     irrational_base = (1 + np.sqrt(5)) / 2
     if scale_sampling == "lin":
@@ -219,6 +329,40 @@ class _GridSSPSpace(SSPSpace):
     def _make_basis(self, domain_dim):
         raise NotImplementedError
 
+    def _grid_encoder_pattern_size(self):
+        """Number of Fourier rows per grid module."""
+        raise NotImplementedError
+
+    def sample_grid_encoders(self, n_neurons, method="sobol"):
+        """Per-neuron single-grid-module encoders: a Fourier impulse confined
+        to one module's rows, conjugate-symmetric completed."""
+        d, A = self.ssp_dim, self.phase_matrix
+        sub = self._grid_encoder_pattern_size()
+        k = (d - 1) // 2
+        N = ((d - 2) // 2 if d % 2 == 0 else (d - 1) // 2) // sub
+
+        num_pts = (int(np.ceil(n_neurons ** (1 / self.domain_dim)))
+                   if method == "grid" else n_neurons)
+        pts = self.get_sample_points(num_pts, method=method)[:n_neurons]
+        n_per = int(np.floor(n_neurons / N))
+        sorts = np.concatenate([
+            np.repeat(np.arange(N), n_per),
+            self.rng.integers(0, N, size=n_neurons - N * n_per)])
+
+        encoders = np.zeros((n_neurons, d))
+        for i in range(n_neurons):
+            res = np.zeros(d, dtype=complex)
+            lo = 1 + sorts[i] * sub
+            hi = lo + sub
+            res[lo:hi] = np.exp(1j * A[lo:hi] @ pts[i])
+            res[k + 1:] = np.conjugate(np.flip(res[1:k + 1]))
+            res[0] = 1
+            if d % 2 == 0:
+                res[d // 2] = 1
+            encoders[i] = np.fft.ifft(res).real
+        encoders /= np.linalg.norm(encoders, axis=-1, keepdims=True)
+        return encoders
+
 
 class HexagonalSSPSpace(_GridSSPSpace):
     """Simplex-vertex (hexagonal-lattice) SSP space.
@@ -241,3 +385,27 @@ class HexagonalSSPSpace(_GridSSPSpace):
             - (domain_dim ** (-3 / 2)) * (np.sqrt(domain_dim + 1) + 1),
             (domain_dim ** (-1 / 2)) * np.ones((domain_dim, 1)),
         ]).T
+
+    def _grid_encoder_pattern_size(self):
+        return self.domain_dim + 1
+
+
+class RectangularSSPSpace(_GridSSPSpace):
+    """Axis-aligned basis SSP space.
+    ``ssp_dim = 2 * n_rotates * n_scales * domain_dim + 1``."""
+
+    _basis_extra = 0
+
+    def __init__(self, domain_dim: int, ssp_dim: int = 101,
+                 n_rotates: int = 5, n_scales: int = 5, scale_min=None,
+                 scale_max=np.pi, scale_sampling="lin", domain_bounds=None,
+                 length_scale=1, rng=None, seed=None):
+        super().__init__(domain_dim, ssp_dim, n_rotates, n_scales, scale_min,
+                         scale_max, scale_sampling, domain_bounds,
+                         length_scale, rng, seed, default_dim=101)
+
+    def _make_basis(self, domain_dim):
+        return np.eye(domain_dim)
+
+    def _grid_encoder_pattern_size(self):
+        return self.domain_dim
