@@ -65,11 +65,33 @@ result line):
 10. ``python -m sspslam_tpu_torch.experiments.run_pathint`` at its defaults
    (T = 20 s, ssp_dim 97, 800 LIF per VCO) as a subprocess: it must exit 0
    and print finite errors (printed, not gated: path integration alone
-   drifts).
+   drifts);
+11. SLAM: ``SLAMNetwork`` at full width (82,280 LIF neurons: ssp_dim 97,
+   800 per VCO, memory 970, 100 per circular-convolution dimension, clean-up
+   over 100 x 100 samples in bf16) on ``bench.py --model slam``'s traffic
+   (the 14 s world, 10 landmarks, view radius 0.8, the single-nearest
+   adapter) through the Simulator: build time and resource summary; graph
+   replay against the eager step over 2,000 steps (max-abs <= 1e-6);
+   kernels per step from one profiler pass; the tracking cosine over the
+   last quarter of the world from one run of its 14,000 steps (>= 0.93,
+   bench.py's gate); the gate's hoisted ``shift_rate`` set to 0 in place
+   changes the next replay with no new capture, and the replay equals the
+   eager step at 0; steps/s over 50,000 timed steps after one 10,000-step
+   warm-up segment (inputs past the world repeat its last row), the card's
+   clocks and power read just before and after;
+12. ``SLAMNetwork(gate_mode="auto_recovery", anchor=True)`` at the same
+   width with 3 surveyed landmarks: graph replay against eager over 2,000
+   steps (max-abs <= 1e-6) — the stateful gate and its in-step bind /
+   unbind inside a captured graph.  Neither SLAM path launches the VCO
+   kernel (count 0), as the JAX package's SLAMNetwork reaches no Pallas
+   kernel;
+13. ``python -m sspslam_tpu_torch.experiments.run_slam --T 20`` at its
+   default widths as a subprocess: exit 0 and finite errors (printed, not
+   gated).
 
-The last four lines of standard output are one JSON object of the
-Simulator's numbers, the card's name and power limit, one JSON object
-describing the kernel, and the result line.
+The last five lines of standard output are one JSON object of the
+Simulator's numbers, one of the SLAM numbers, the card's name and power
+limit, one JSON object describing the kernel, and the result line.
 
 To compare the kernel of two checkouts on one card, time each in turns
 within one command (the other commit unpacked into a git-ignored
@@ -109,6 +131,14 @@ ACCURACY_TOL = 0.25   # decode error after 800 steps at constant velocity
 GRAPH_UNITS = (1, 10, 100)  # steps per captured CUDA graph, timed in turn
 REPLAY_TOL = 1e-6     # graph replay vs eager step, max-abs over LONG steps
 PROFILE_STEPS = 100
+# bench.py --model slam: the 14 s world, 10 landmarks, view radius 0.8; the
+# anchor phase surveys the first 3 landmarks; the tracking gate is bench.py's
+WORLD_STEPS = 14_000
+SLAM_LANDMARKS = 10
+VIEW_RAD = 0.8
+ANCHORS = 3
+TRACKING_GATE = 0.93
+SHIFT_STEPS = 1_000   # steps replayed per setting of a hoisted threshold
 SWEEP = (1, 4, 4, 1)
 SWEEP_REPEATS = 3
 TIME_REPEATS = 5
@@ -548,16 +578,18 @@ def pi_simulator(space, vels, scaling_factor=1.0, corrections=None,
 def timed_run(sim, probe, steps=TIMED):
     """One CHUNK-step warm-up segment (graph capture included), then
     ``steps`` timed steps in CHUNK-step segments; returns (steps/s, the
-    whole trace)."""
+    whole trace, the card's clocks and power just before and just after
+    the timed window)."""
     sim.reset()
     sim.preload_inputs(CHUNK + steps)
     sim.run_steps(CHUNK, segment_steps=CHUNK)
     sim.sync()
+    before = nvidia_smi(ClockSampler.QUERY)
     t0 = time.perf_counter()
     sim.run_steps(steps, segment_steps=CHUNK)
     sim.sync()
     rate = steps / (time.perf_counter() - t0)
-    return rate, sim.data[probe]
+    return rate, sim.data[probe], [before, nvidia_smi(ClockSampler.QUERY)]
 
 
 def profile_steps(sim, eager):
@@ -604,21 +636,7 @@ def simulator_path(space, vco, fast_trace):
     log(f"Simulator build (d={space.ssp_dim}, {n} neurons): "
         f"{time.perf_counter() - t0:.1f} s")
 
-    # graph replay vs the eager step, same inputs and state
-    traces = {}
-    for eager in (False, True):
-        sim.reset()
-        sim._eager = eager
-        sim.preload_inputs(LONG)
-        sim.run_steps(LONG, segment_steps=LONG)
-        traces[eager] = sim.data[probe]
-    sim._eager = False
-    replay_err = float(np.abs(traces[False] - traces[True]).max())
-    log(f"Simulator: graph replay vs eager step, {LONG} steps: max-abs "
-        f"{replay_err:.3e} (tol {REPLAY_TOL})")
-    if not replay_err <= REPLAY_TOL:
-        raise AssertionError(f"graph replay differs from the eager step: "
-                             f"{replay_err}")
+    replay_err, _ = replay_vs_eager(sim, probe, "Simulator")
 
     k_eager, ev_eager, busy_eager, share_eager, _ = profile_steps(sim, True)
     k_graph, _, busy_graph, share_graph, top = profile_steps(sim, False)
@@ -635,7 +653,7 @@ def simulator_path(space, vco, fast_trace):
     vco.vco_scan.launches = 0
     for U in GRAPH_UNITS:
         sim._graph_steps = U
-        rates[U], trace = timed_run(sim, probe)
+        rates[U], trace, _ = timed_run(sim, probe)
         log(f"Simulator, graphs of {U} steps: {rates[U]:.0f} steps/s over "
             f"{TIMED} steps")
         if first is None:
@@ -650,7 +668,7 @@ def simulator_path(space, vco, fast_trace):
     best = max(rates, key=rates.get)
     sim._graph_steps = best
     sim._eager = True
-    eager_rate, _ = timed_run(sim, probe)
+    eager_rate, _, _ = timed_run(sim, probe)
     sim._eager = False
     log(f"Simulator, eager: {eager_rate:.0f} steps/s over {TIMED} steps; "
         f"fastest graph length {best} steps")
@@ -786,30 +804,249 @@ def simulator_accuracy(space_cls):
     return err
 
 
-def run_pathint_cli():
-    """Phase 10: the port's run_pathint at its defaults, as a user runs
-    it; returns (final error, median error, seconds)."""
+def run_cli(name, *args):
+    """Phases 10 and 13: ``python -m sspslam_tpu_torch.experiments.<name>``
+    with ``args``, as a user runs it; it must exit 0 and print finite
+    errors.  Returns (final error, median error, seconds)."""
     t0 = time.perf_counter()
     proc = subprocess.run(
-        [sys.executable, "-m", "sspslam_tpu_torch.experiments.run_pathint"],
+        [sys.executable, "-m", f"sspslam_tpu_torch.experiments.{name}",
+         *args],
         cwd=Path(__file__).resolve().parent, capture_output=True, text=True,
         timeout=600)
     seconds = time.perf_counter() - t0
     for line in proc.stdout.splitlines():
         if not line.startswith("  sim "):
-            log(f"  run_pathint: {line.strip()}")
+            log(f"  {name}: {line.strip()}")
     if proc.returncode != 0:
-        raise AssertionError(f"run_pathint exited {proc.returncode}: "
+        raise AssertionError(f"{name} exited {proc.returncode}: "
                              f"{proc.stderr[-2000:]}")
     line = next(l for l in proc.stdout.splitlines()
                 if l.startswith("final distance error"))
     final, median = (float(x) for x in
                      line.replace(";", "").split()[3::2])
     if not (np.isfinite(final) and np.isfinite(median)):
-        raise AssertionError(f"run_pathint printed {line!r}")
-    log(f"run_pathint: exit 0 in {seconds:.1f} s; final error {final}, "
+        raise AssertionError(f"{name} printed {line!r}")
+    log(f"{name}: exit 0 in {seconds:.1f} s; final error {final}, "
         f"median {median} (printed, not gated)")
     return final, median, seconds
+
+
+def slam_world():
+    """bench.py --model slam's world (``build``): the 14 s figure-eight
+    path, its velocities and SLAM_LANDMARKS landmarks from the seed."""
+    dt = 0.001
+    ts = dt * np.arange(WORLD_STEPS)
+    T = WORLD_STEPS * dt
+    path = 0.8 * np.stack([np.sin(2 * np.pi * ts / T),
+                           np.cos(4 * np.pi * ts / T)], axis=1)
+    vels = (1 / dt) * np.diff(path, axis=0, prepend=path[:1])
+    landmarks = np.random.default_rng(SEED).uniform(
+        -0.7, 0.7, size=(SLAM_LANDMARKS, 2))
+    return path, vels, landmarks, landmarks[None, :, :] - path[:, None, :]
+
+
+def slam_simulator(space, world, gate_mode="reference", anchor=False):
+    """bench.py --model slam's network on the port: SLAMNetwork at full
+    width (800 LIF per VCO, memory 970, 100 neurons per circular-convolution
+    dimension, clean-up over 100 x 100 samples in bf16) fed by the
+    single-nearest adapter, the PI output probed through a 50 ms lowpass.
+    With ``anchor`` the auto-recovery gate reads the first ANCHORS
+    landmarks as surveyed beacons.  Returns (simulator, probe, build s)."""
+    from sspslam_tpu_torch import SPSpace
+    from sspslam_tpu_torch.models import (SLAMNetwork,
+                                          get_anchor_input_functions,
+                                          get_slam_input_functions)
+    from sspslam_tpu_torch.nef import (Connection, Network, Node, Probe,
+                                       Simulator, clamp_table)
+    path, vels, landmarks, vec = world
+    lm_space = SPSpace(SLAM_LANDMARKS, space.ssp_dim, seed=SEED)
+    (vel_f, scale, in_view_f, _, sp_f, _, vecssp_f) = \
+        get_slam_input_functions(space, lm_space, vels, vec, VIEW_RAD)
+    with Network(seed=SEED) as net:
+        slam = SLAMNetwork(space, lm_space, VIEW_RAD, SLAM_LANDMARKS,
+                           pi_n_neurons=N_NEURONS, mem_n_neurons=970,
+                           circonv_n_neurons=100, vel_scaling_factor=scale,
+                           cleanup_samples_per_dim=100, seed=SEED,
+                           gate_mode=gate_mode, anchor=anchor)
+        for f, dst in ((vel_f, slam.velocity_input),
+                       (clamp_table(space.encode(path[:1]).ravel(), 0.05),
+                        slam.pathintegrator.input),
+                       (sp_f, slam.landmark_id_input),
+                       (vecssp_f, slam.landmark_vec_ssp),
+                       (in_view_f, slam.no_landmark_in_view)):
+            Connection(Node(f), dst, synapse=None)
+        if anchor:
+            tables = get_anchor_input_functions(
+                space, vec, np.arange(ANCHORS), landmarks[:ANCHORS],
+                VIEW_RAD)
+            for f, dst in zip(tables, (slam.anchor_pos_input,
+                                       slam.anchor_vec_ssp,
+                                       slam.no_anchor_in_view)):
+                Connection(Node(f), dst, synapse=None)
+        probe = Probe(slam.pathintegrator.output, synapse=0.05)
+    t0 = time.perf_counter()
+    sim = Simulator(net, seed=SEED, device="cuda")
+    return sim, probe, time.perf_counter() - t0
+
+
+def replay_vs_eager(sim, probe, what):
+    """Graph replay against the eager step over LONG steps from the fresh
+    state; returns the max-abs difference of the probe traces and the
+    eager run's steps/s."""
+    traces = {}
+    for eager in (False, True):
+        sim.reset()
+        sim._eager = eager
+        sim.preload_inputs(LONG)
+        t0 = time.perf_counter()
+        sim.run_steps(LONG, segment_steps=LONG)
+        sim.sync()
+        eager_rate = LONG / (time.perf_counter() - t0)
+        traces[eager] = sim.data[probe]
+    sim._eager = False
+    err = float(np.abs(traces[False] - traces[True]).max())
+    log(f"{what}: graph replay vs eager step, {LONG} steps: max-abs "
+        f"{err:.3e} (tol {REPLAY_TOL}); eager {eager_rate:.0f} steps/s")
+    if not (np.all(np.isfinite(traces[False])) and err <= REPLAY_TOL):
+        raise AssertionError(f"{what}: graph replay differs from the eager "
+                             f"step: {err}")
+    return err, eager_rate
+
+
+def tracking_cosine(space, out, path):
+    """bench.py's sanity metric: the mean over the last quarter of the world
+    of cos(PI output, encode(path)), the output's norm only."""
+    k = min(out.shape[0], path.shape[0])
+    real = space.encode(path[:k])
+    sims = np.sum(out[:k] * real, axis=1) / np.maximum(
+        np.linalg.norm(out[:k], axis=1), 1e-9)
+    return float(np.mean(sims[-k // 4:]))
+
+
+def hoisted_threshold(sim, probe):
+    """An in-place change of a hoisted threshold (the gate's shift_rate set
+    to 0) changes the next graph replay, with no new capture: from one
+    saved state, SHIFT_STEPS replayed steps at the built shift_rate, then
+    with shift_rate 0, then eagerly with 0 (the replay must equal it).
+    Returns (max-abs of the first two, max-abs of the last two)."""
+    from sspslam_tpu_torch.nef.simulator import _flatten
+    key = next(k for k, h in sim.params["hoisted"].items()
+               if "shift_rate" in h)
+    rate = sim.params["hoisted"][key]["shift_rate"]
+    built = rate.clone()
+    leaves = _flatten(sim.state)
+    saved = [x.clone() for x in leaves]
+    sim.preload_inputs(SHIFT_STEPS)
+    traces, graphs = [], None
+    for value, eager in ((None, False), (0.0, False), (0.0, True)):
+        for x, s in zip(leaves, saved):
+            x.copy_(s)
+        sim._preload_start = sim.n_steps   # replay the same input rows
+        if value is not None:
+            rate.fill_(value)
+        sim._eager = eager
+        sim.run_steps(SHIFT_STEPS, segment_steps=SHIFT_STEPS)
+        traces.append(sim.data[probe][-SHIFT_STEPS:])
+        if graphs is None:
+            graphs = dict(sim._graphs)
+        elif not eager and {k: id(g) for k, g in sim._graphs.items()} != \
+                {k: id(g) for k, g in graphs.items()}:
+            raise AssertionError("changing a hoisted threshold recaptured "
+                                 "the graphs")
+    sim._eager = False
+    rate.copy_(built)
+    moved = float(np.abs(traces[0] - traces[1]).max())
+    same = float(np.abs(traces[1] - traces[2]).max())
+    log(f"SLAM: shift_rate {float(built):g} -> 0 in place: the next "
+        f"{SHIFT_STEPS} replayed steps move by max-abs {moved:.3e}, no new "
+        f"capture; replay vs eager at 0: max-abs {same:.3e} (tol "
+        f"{REPLAY_TOL})")
+    if not (moved > 1e-3 and same <= REPLAY_TOL):
+        raise AssertionError(f"shift_rate in place: moved {moved}, replay "
+                             f"vs eager {same}")
+    return moved, same
+
+
+def slam_path(space, vco):
+    """Phases 11 and 12: SLAMNetwork at full width on bench.py --model
+    slam's traffic through the Simulator.  Returns the numbers of the SLAM
+    JSON line."""
+    from sspslam_tpu_torch.utils.profiling import print_utilization_summary
+    world = slam_world()
+    path = world[0]
+    vco.vco_scan.launches = 0
+    sim, probe, build_s = slam_simulator(space, world)
+    n = sum(be.k * be.n if be.batched else be.n for be in sim.model.ensembles)
+    log(f"SLAM build (d={space.ssp_dim}, {n} neurons): {build_s:.1f} s")
+    print_utilization_summary(sim.model)
+    out = {"neurons": n, "build_s": build_s}
+
+    # (a) graph replay vs eager
+    out["graph_vs_eager_max_abs"], out["steps_per_s_eager"] = \
+        replay_vs_eager(sim, probe, "SLAM")
+
+    # (b) kernels per step
+    k_eager, ev_eager, busy_eager, share_eager, _ = profile_steps(sim, True)
+    k_graph, _, busy_graph, share_graph, top = profile_steps(sim, False)
+    log(f"SLAM profile over {PROFILE_STEPS} steps: eager {k_eager:.2f} "
+        f"kernels per step ({ev_eager:.2f} device events), device busy "
+        f"{busy_eager:.1f} us per step = {share_eager * 100:.1f} % of the "
+        f"profiled wall time; graph replay {k_graph:.2f} kernels per step, "
+        f"busy {busy_graph:.1f} us per step = {share_graph * 100:.1f} %")
+    for name, us, calls in top:
+        log(f"  SLAM graph replay, per step: {us:6.2f} us in {calls:.2f} x "
+            f"{name}")
+    out.update(kernels_per_step_eager=k_eager, kernels_per_step_graph=k_graph,
+               device_busy_us_per_step_eager=busy_eager,
+               device_busy_us_per_step_graph=busy_graph,
+               device_busy_share_graph=share_graph, top_kernels_graph=top)
+
+    # (c) tracking over the world, in one run from the fresh state
+    sim.reset()
+    sim.run_steps(WORLD_STEPS)
+    trace = sim.data[probe]
+    cos = tracking_cosine(space, trace, path)
+    log(f"SLAM tracking cosine (last quarter of the {WORLD_STEPS}-step "
+        f"world): {cos:.4f} (gate >= {TRACKING_GATE})")
+    if not (trace.shape == (WORLD_STEPS, space.ssp_dim)
+            and np.all(np.isfinite(trace)) and cos >= TRACKING_GATE):
+        raise AssertionError(f"SLAM tracking cosine {cos} < {TRACKING_GATE} "
+                             f"or the trace is not finite")
+    out["tracking_cosine"] = cos
+
+    # (f) a hoisted threshold changed in place, from the tracked state
+    out["shift_rate_in_place_moved"], out["shift_rate_replay_vs_eager"] = \
+        hoisted_threshold(sim, probe)
+
+    # (d) steps/s, bench.py's timing: one warm-up segment, then TIMED steps
+    rate, timed, window = timed_run(sim, probe)
+    log(f"SLAM: {rate:.0f} steps/s over {TIMED} steps (graphs of "
+        f"{sim._graph_steps} steps); window ({ClockSampler.QUERY}): just "
+        f"before {window[0]}; just after {window[1]}")
+    if not np.all(np.isfinite(timed)):
+        raise AssertionError("SLAM timed run is not finite")
+    out["steps_per_s"] = rate
+    out["timed_window_nvidia_smi"] = window
+    del sim
+
+    # 12. the auto-recovery gate with anchors: the stateful node and the
+    # in-step bind / unbind inside a captured graph
+    sim, probe, build_s = slam_simulator(space, world, "auto_recovery",
+                                         anchor=True)
+    log(f"SLAM, auto-recovery gate with {ANCHORS} anchors: build "
+        f"{build_s:.1f} s")
+    out["anchor_graph_vs_eager_max_abs"], out["anchor_steps_per_s_eager"] \
+        = replay_vs_eager(sim, probe, "SLAM, auto-recovery + anchor")
+    del sim
+
+    # (e) this path reaches no Pallas kernel in the JAX package
+    launches = vco.vco_scan.launches
+    if launches != 0:
+        raise AssertionError(f"the SLAM path launched vco_scan {launches} "
+                             f"times")
+    out["vco_scan_launches"] = launches
+    return out
 
 
 def time_checkout(root: str) -> None:
@@ -902,9 +1139,15 @@ def main() -> int:
     simulator = simulator_path(space, vco, trace)
     simulator["semantics_vs_cpu"] = simulator_semantics()
     simulator["accuracy_error"] = simulator_accuracy(HexagonalSSPSpace)
-    final, median, seconds = run_pathint_cli()
+    final, median, seconds = run_cli("run_pathint")
     simulator["run_pathint"] = {"final_error": final, "median_error": median,
                                 "seconds": seconds}
+
+    # 11-13. SLAM
+    slam = slam_path(space, vco)
+    final, median, seconds = run_cli("run_slam", "--T", "20")
+    slam["run_slam"] = {"final_error": final, "median_error": median,
+                        "seconds": seconds}
 
     ms = float(np.mean(full[chosen]))
     b_ms, b_by = bound_ms(fpi.n, fpi.k, fpi.d, fpi.N, CHUNK, spikes)
@@ -912,6 +1155,7 @@ def main() -> int:
         f"({b_by}); kernel {ms:.3f} ms = {b_ms / ms * 100:.2f} % of its "
         f"bound")
     print(json.dumps({"simulator": simulator}), flush=True)
+    print(json.dumps({"slam": slam}), flush=True)
     log(nvidia_smi())
     print(json.dumps({"kernels": [{
         "name": "vco_scan", "route": "cuda",
@@ -929,7 +1173,10 @@ def main() -> int:
         "whole_run_vs_cluster": other,
         "whole_run_decoded_diff": ends,
         "launched_by": ["FastPathIntegrator.run (phase 5, bench.py --model "
-                        "pi-fast traffic)"]}]}))
+                        "pi-fast traffic)"],
+        "launches_on_simulator_paths": {
+            "pi (phase 8)": simulator["vco_scan_launches"],
+            "slam (phases 11-12)": slam["vco_scan_launches"]}}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

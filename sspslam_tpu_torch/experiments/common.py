@@ -2,8 +2,8 @@
 space, decoding and npz saving.
 
 A copy of the parts of the JAX package's ``experiments/common.py`` that
-``run_pathint`` uses (that module imports the JAX package).  ``--device``
-(default ``cuda``) replaces ``--backend``.
+``run_pathint`` and ``run_slam`` use (that module imports the JAX package).
+``--device`` (default ``cuda``) replaces ``--backend``.
 """
 
 from __future__ import annotations

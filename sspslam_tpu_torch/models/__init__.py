@@ -4,7 +4,11 @@ from .binding import (CircularConvolution, Product, circconv,
 from .fast_pathint import FastPathIntegrator
 from .pathintegration import (PathIntegration, get_from_Fourier,
                               get_to_Fourier, vco_feedback)
+from .slam import (SLAMNetwork, get_anchor_input_functions,
+                   get_slam_input_functions, get_slam_input_functions2)
 
 __all__ = ["AssociativeMemory", "CircularConvolution", "FastPathIntegrator",
            "PathIntegration", "Product", "circconv", "dot_product_transform",
-           "get_from_Fourier", "get_to_Fourier", "vco_feedback"]
+           "get_from_Fourier", "get_to_Fourier", "vco_feedback",
+           "SLAMNetwork", "get_slam_input_functions",
+           "get_slam_input_functions2", "get_anchor_input_functions"]

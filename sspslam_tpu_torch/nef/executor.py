@@ -115,7 +115,11 @@ def _to(x, device, dtype=torch.float32) -> torch.Tensor:
 
 def _leaf_tensor(x, device) -> torch.Tensor:
     """A parameter leaf (a NumPy array, a scalar or a tensor) on ``device``:
-    floats as float32, integer and boolean arrays keep their dtype."""
+    floats as float32, integer and boolean arrays keep their dtype, and a
+    bfloat16 tensor stays bfloat16 (the clean-up's similarity bank, which
+    a float32 copy would make the step cast every time)."""
+    if torch.is_tensor(x) and x.dtype == torch.bfloat16:
+        return x.detach().to(device)
     arr = np.asarray(x.detach().cpu() if torch.is_tensor(x) else x)
     if arr.dtype.kind == "f":
         arr = arr.astype(np.float32)
@@ -131,8 +135,10 @@ def build_params(model: Model, matmul_dtype=None, *, device):
     that dtype; bias, gain, learning rates and every learned weight stay
     float32.  Learning rates are 0-d tensors: changing one in place (e.g.
     ``params["hyper"]["lr"][slot].fill_(0)``) changes the next step without
-    a new step function or a new CUDA graph.  Filter coefficients are
-    Python floats baked into the step."""
+    a new step function or a new CUDA graph.  So are the tables a node
+    function hoists (``params["hoisted"]``: the clean-up's sample bank, the
+    gates' thresholds), which the node reads from here, on ``device``.
+    Filter coefficients are Python floats baked into the step."""
     device = torch.device(device)
     cast = _parse_param_dtype(matmul_dtype) or torch.float32
 
@@ -191,7 +197,8 @@ def params_from_numpy(model: Model, np_params, *, device, matmul_dtype=None):
     cast them).  ``model`` is the port's build of the same network; the tree
     must have exactly the keys the port's ``build_params`` gives it."""
     cast = _parse_param_dtype(matmul_dtype) or torch.float32
-    want = _key_tree(build_params(model, device="cpu"))
+    own = build_params(model, device="cpu")
+    want = _key_tree(own)
     got = _key_tree(np_params)
     if got != want:
         raise ValueError("the parameter tree does not match this model's "
@@ -200,8 +207,10 @@ def params_from_numpy(model: Model, np_params, *, device, matmul_dtype=None):
 
     def leaf(path, x):
         t = _leaf_tensor(x, device)
-        stays_f32 = (path[0] in ("hyper", "hoisted")
-                     or path[-1] in ("bias", "gain"))
+        if path[0] == "hoisted":
+            # the dtype the node's own table has (a bf16 clean-up bank)
+            return t.to(own["hoisted"][path[1]][path[2]].dtype)
+        stays_f32 = path[0] == "hyper" or path[-1] in ("bias", "gain")
         return t if stays_f32 or not t.is_floating_point() else t.to(cast)
 
     return _map_tree(np_params, leaf)

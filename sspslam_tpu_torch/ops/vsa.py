@@ -1,11 +1,12 @@
 """Vector-symbolic-algebra primitives on torch tensors.
 
 Port of the parts of :mod:`sspslam_tpu.ops.vsa` that path integration,
-SSP construction and the binding networks use: the real half-spectrum DFT
-matrices, SSP encoding, the binding algebra (bind, unbind, invert,
-normalize, make_unitary, the identity), the conjugate-symmetric phase
-expansion, the neural circular convolution's transforms and the SSP <->
-VCO-triple Fourier layouts.  The DFT stays a matmul, as in the JAX package, so both packages
+SSP construction, the binding networks and SLAM use: the real
+half-spectrum DFT matrices, SSP encoding, the binding algebra (bind,
+unbind, invert, normalize, make_unitary, the identity), the clean-up
+against a sample bank, the conjugate-symmetric phase expansion, the neural
+circular convolution's transforms and the SSP <-> VCO-triple Fourier
+layouts.  The DFT stays a matmul, as in the JAX package, so both packages
 hold the same float32 matrices bitwise; ``torch.fft`` is a later
 measurement, not a given.
 
@@ -16,13 +17,16 @@ the LAST axis as the vector axis and broadcasts over leading axes.
 
 from __future__ import annotations
 
+import os
 from functools import lru_cache
 
 import numpy as np
 import torch
 
 __all__ = ["encode", "rfft_pair", "irfft_pair", "bind", "unbind", "invert",
-           "normalize", "make_unitary", "identity_vector", "conjsym",
+           "normalize", "make_unitary", "identity_vector", "similarity",
+           "default_cleanup_dtype", "nearest_row", "cleanup_from_set",
+           "conjsym",
            "dft_half_matrices", "binding_input_transforms",
            "binding_output_transform", "to_fourier_matrix",
            "from_fourier_matrix"]
@@ -43,13 +47,27 @@ def _rdft_mats_np(d: int):
     return W_re, W_im, M_c, M_s
 
 
+@lru_cache(maxsize=64)
+def _rdft_mats_on(d: int, device: torch.device, dtype):
+    return tuple(torch.as_tensor(m, dtype=dtype, device=device)
+                 for m in _rdft_mats_np(d))
+
+
 def _rdft_mats(d: int, device, dtype=torch.float32):
     """(W_re, W_im, M_c, M_s) as tensors on ``device``:
     forward:  Z_j = (W_re @ x)_j + i (W_im @ x)_j   for j in [0, d//2]
     inverse:  x = M_c @ Re(Z) + M_s @ Im(Z)          (conj-symmetric Z)
+
+    Uploaded once per (d, device, dtype) and shared by every caller after
+    that, so a step that binds (the auto-recovery gate's anchor channels)
+    uploads nothing and can be captured as a CUDA graph.  Read-only.
     """
-    return tuple(torch.as_tensor(m, dtype=dtype, device=device)
-                 for m in _rdft_mats_np(d))
+    return _rdft_mats_on(d, torch.device(device), dtype)
+
+
+@lru_cache(maxsize=64)
+def _invert_index(d: int, device: torch.device) -> torch.Tensor:
+    return torch.as_tensor((-np.arange(d)) % d, device=device)
 
 
 def rfft_pair(v: torch.Tensor):
@@ -104,9 +122,7 @@ def unbind(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def invert(a: torch.Tensor) -> torch.Tensor:
     """Involution a[-i mod d]: the binding inverse for unitary vectors."""
-    d = a.shape[-1]
-    idx = torch.as_tensor((-np.arange(d)) % d, device=a.device)
-    return a[..., idx]
+    return a[..., _invert_index(a.shape[-1], a.device)]
 
 
 def normalize(v: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
@@ -128,6 +144,43 @@ def identity_vector(d: int, dtype=torch.float32, *, device) -> torch.Tensor:
     v = torch.zeros((d,), dtype=dtype, device=device)
     v[0] = 1.0
     return v
+
+
+def similarity(vectors: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Dot products of ``v`` (..., d) against a codebook (m, d) -> (..., m)."""
+    return torch.einsum("md,...d->...m", vectors, v)
+
+
+def default_cleanup_dtype():
+    """The dtype of the clean-up similarity product in the models:
+    bfloat16, unless SSPSLAM_CLEANUP_F32=1 asks for full precision (the
+    JAX package's switch).  :func:`cleanup_from_set` itself defaults to
+    float32."""
+    return (torch.float32 if os.environ.get("SSPSLAM_CLEANUP_F32")
+            else torch.bfloat16)
+
+
+def nearest_row(bank: torch.Tensor, bank_sim: torch.Tensor,
+                v: torch.Tensor) -> torch.Tensor:
+    """The row of ``bank`` (m, d) whose row of ``bank_sim`` (the same bank,
+    in the dtype of the similarity product) is most similar to ``v``
+    (..., d): the argmax (the first maximal index, as ``jnp.argmax``) and
+    a gather, with no host read, so a captured step can run it."""
+    best = torch.argmax(similarity(bank_sim, v.to(bank_sim.dtype)), dim=-1)
+    return bank.index_select(0, best.reshape(-1)).reshape(v.shape)
+
+
+def cleanup_from_set(sample_ssps: torch.Tensor, v: torch.Tensor,
+                     sim_dtype=torch.float32) -> torch.Tensor:
+    """Replace ``v`` (..., d) with the most similar row of ``sample_ssps``
+    (m, d), gathered from the bank as given.
+
+    ``sim_dtype`` is the dtype of the similarity product (float32 by
+    default; bfloat16 halves the bank read and only risks a tie flipping
+    the pick to a neighbouring sample); ``None`` compares in the bank's
+    dtype."""
+    return nearest_row(sample_ssps, sample_ssps if sim_dtype is None
+                       else sample_ssps.to(sim_dtype), v)
 
 
 def conjsym(K: np.ndarray) -> np.ndarray:

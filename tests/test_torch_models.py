@@ -204,12 +204,12 @@ def test_run_pathint_cli_matches_jax(tmp_path):
 
 
 def test_entry_points_default_to_the_card():
-    """Simulator, FastPathIntegrator and the CLI name no device by default
+    """Simulator, FastPathIntegrator and the CLIs name no device by default
     and then ask for CUDA: without a card they raise and never run on the
     CPU."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present; chip_smoke.py covers it")
-    from sspslam_tpu_torch.experiments import run_pathint
+    from sspslam_tpu_torch.experiments import run_pathint, run_slam
     space = psp.HexagonalSSPSpace(2, ssp_dim=31, seed=0)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         pmodels.FastPathIntegrator(space, 48, seed=0)
@@ -220,6 +220,10 @@ def test_entry_points_default_to_the_card():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         run_pathint.main(["--T", "0.01", "--ssp-dim", "31",
                           "--pi-n-neurons", "20"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run_slam.main(["--T", "0.01", "--ssp-dim", "31",
+                       "--pi-n-neurons", "20", "--mem-n-neurons", "20",
+                       "--circonv-n-neurons", "10", "--n-landmarks", "3"])
 
 
 def test_port_imports_nothing_of_jax():
