@@ -25,12 +25,11 @@ result line):
 4. cluster sweep: the kernel's time per 10,000-step chunk for each C in
    turns (1, 4, 4, 1) at full width, at 32 neurons per oscillator (the
    per-step floor: exchange and barrier latency with almost no neuron
-   work), at the 3-D configurations of ``experiments/scaled_slam.py``
-   (ssp_dim 201 and 801 -> k = 101 and 401, 800 LIF each) and at the
-   first k oscillators of those builds for k on either side of the edges
-   that ``_cluster_size`` and the waves of resident clusters set, each
-   first held to the plain version over 40 steps; the card's clocks and
-   power are sampled over the sweep;
+   work) and at the first k = 62 and 63 oscillators of the 3-D ssp_dim 201
+   build of ``experiments/scaled_slam.py`` (800 LIF each), either side of
+   the edge where ``_cluster_size`` changes C, each first held to the
+   plain version over 40 steps; the card's clocks and power are sampled
+   over the sweep;
 5. main path: ``FastPathIntegrator`` driven with ``bench.py --model
    pi-fast``'s traffic (one 10,000-step warm-up chunk, then 50,000 timed
    steps) at the C the wrapper picks, with the card's clocks and power
@@ -47,11 +46,11 @@ result line):
    --model pi``'s traffic (the same velocities as phase 5, PathIntegration
    built from the same seed, LIF): its CUDA-graph replay against its eager
    step over the first 2,000 steps (max-abs <= 1e-6), CUDA kernels per
-   step from one ``torch.profiler`` pass over 100 eager steps (and the
-   device's busy share over 100 replayed steps), steps/s for graphs of
-   U = 1, 10 and 100 steps and for eager stepping (one 10,000-step warm-up
-   segment, then 50,000 timed steps each), every U's trace equal to the
-   first's, and the decoded positions of the Simulator's trace and the fast
+   step from one ``torch.profiler`` pass over 20 eager steps (and the
+   device's busy share over 20 replayed steps), steps/s for graphs of
+   U = 10 steps (50,000 timed steps) and for eager stepping (2,000), each
+   after one 10,000-step warm-up segment, and the decoded positions of the
+   Simulator's trace and the fast
    path's trace of phase 5 within 0.1 of each other at every 10,000-step
    boundary.  This path launches no hand-written kernel (the JAX engine
    reaches no Pallas kernel); the VCO kernel's count over it must stay 0.
@@ -87,11 +86,40 @@ result line):
    kernel;
 13. ``python -m sspslam_tpu_torch.experiments.run_slam --T 20`` at its
    default widths as a subprocess: exit 0 and finite errors (printed, not
-   gated).
+   gated);
+14. ``SLAMGatedNetwork`` (the all-neural gate, ≈ 92,000 LIF: 800 per VCO,
+   memory 970, 100 per circular-convolution dimension and for the dot
+   product) on phase 11's traffic: build time and neuron count, graph
+   replay against eager over 2,000 steps (max-abs <= 1e-6), kernels per
+   step, the tracking cosine over the world (printed: the JAX package sets
+   no gate for this model), steps/s over 50,000 timed steps after one
+   warm-up segment with the clocks and power read around them;
+15. ``SLAMViewNetwork`` at ``run_slamview``'s default widths (700 per VCO,
+   memory 970, grid clean-up over 100 x 100) fed by
+   ``get_slamview_input_functions`` on the same world: the checks of phase
+   14; then the auto-recovery gate with 3 surveyed landmarks, replay
+   against eager (<= 1e-6);
+16. the clean-up methods: ``train_decoder_net`` at its defaults on the
+   card (time, final loss); ``decode`` of 1,000 random points by from-set,
+   direct-optim, network and network-optim (median errors; direct-optim
+   must be no worse than from-set); ``SLAMNetwork`` at phase 11's width
+   with each of the direct-optim, network and network-optim clean-ups,
+   replay against eager over 2,000 steps (<= 1e-6), and for direct-optim
+   kernels per step and steps/s over 20,000 timed steps;
+17. ``PathIntegrationReencode``, ``PathIntegrationGC`` and
+   ``PathIntegrationBCsGCs`` at ssp_dim 97, 800 neurons per ensemble, on
+   phase 8's velocities: replay against eager over 1,000 steps (<= 1e-6)
+   and the decoded error at the end (printed);
+18. ``run_slamview --T 20`` and ``run_slam --backend gated --T 20`` as
+   subprocesses (run as ``python -m`` does, through runpy, so the child
+   can report the VCO kernel's launches): exit 0 and finite errors
+   (printed, not gated).  The VCO kernel launches 0 times over phases
+   14-18, as the JAX package reaches no Pallas kernel on these paths.
 
-The last five lines of standard output are one JSON object of the
-Simulator's numbers, one of the SLAM numbers, the card's name and power
-limit, one JSON object describing the kernel, and the result line.
+The last six lines of standard output are one JSON object of the
+Simulator's numbers, one of the SLAM numbers, one of phases 14-18
+(``family``), the card's name and power limit, one JSON object describing
+the kernel, and the result line.
 
 To compare the kernel of two checkouts on one card, time each in turns
 within one command (the other commit unpacked into a git-ignored
@@ -128,9 +156,11 @@ SHORT_TOL = 2e-4      # max-abs over 40 steps (tests/test_pallas.py bound)
 LONG_MEDIAN_TOL = 2e-3  # median |diff| over one 2,000- or 10,000-step chunk
 DRIFT_TOL = 0.1       # decoded-position difference, two kernels, whole run
 ACCURACY_TOL = 0.25   # decode error after 800 steps at constant velocity
-GRAPH_UNITS = (1, 10, 100)  # steps per captured CUDA graph, timed in turn
+GRAPH_UNITS = (10,)   # steps per captured CUDA graph (1, 10 and 100 timed
+                      # within the spread between calls; 10 is the default)
+EAGER_TIMED = 2_000   # eager steps timed on PI (after one warm-up segment)
 REPLAY_TOL = 1e-6     # graph replay vs eager step, max-abs over LONG steps
-PROFILE_STEPS = 100
+PROFILE_STEPS = 20    # the counts per step read the same as over 100 steps
 # bench.py --model slam: the 14 s world, 10 landmarks, view radius 0.8; the
 # anchor phase surveys the first 3 landmarks; the tracking gate is bench.py's
 WORLD_STEPS = 14_000
@@ -144,19 +174,14 @@ SWEEP_REPEATS = 3
 TIME_REPEATS = 5
 # The sweep's widths: (name, domain dim, ssp_dim, neurons per oscillator,
 # oscillators).  None takes the build's own k; a number takes the first k
-# oscillators of the build: on either side of k = 62, where the wrapper's
-# choice of C changes on 132 SMs, and of where a wave of resident clusters
-# ends; and one point at which that choice is not the faster (PERF.md).
+# oscillators of the build: one point on either side of k = 62, where the
+# wrapper's choice of C changes on 132 SMs.  (PERF.md keeps the readings of
+# the whole 3-D builds and of the edges of the waves of resident clusters.)
 SWEEP_WIDTHS = (
     ("full width", 2, SSP_DIM, N_NEURONS, None),
     ("floor", 2, SSP_DIM, FLOOR_NEURONS, None),
     ("3-D ssp_dim 201, first 62", 3, 201, N_NEURONS, 62),
     ("3-D ssp_dim 201, first 63", 3, 201, N_NEURONS, 63),
-    ("3-D ssp_dim 201, n = 400, first 66", 3, 201, 400, 66),
-    ("3-D ssp_dim 201", 3, 201, N_NEURONS, None),
-    ("3-D ssp_dim 801", 3, 801, N_NEURONS, None),
-    *((f"3-D ssp_dim 801, first {k}", 3, 801, N_NEURONS, k)
-      for k in (124, 125, 132, 133, 264, 265)),
 )
 
 # The card's published peaks (NVIDIA H100 SXM data sheet, 700 W): float32
@@ -177,8 +202,12 @@ FLOP_SPIKE = 15
 FLOP_OSC = 19
 
 
+_START = time.perf_counter()
+
+
 def log(msg):
-    print(msg, flush=True)
+    """One line of the run's record, after the seconds since the start."""
+    print(f"[{time.perf_counter() - _START:6.0f} s] {msg}", flush=True)
 
 
 def nvidia_smi(query="name,power.limit") -> str:
@@ -668,9 +697,10 @@ def simulator_path(space, vco, fast_trace):
     best = max(rates, key=rates.get)
     sim._graph_steps = best
     sim._eager = True
-    eager_rate, _, _ = timed_run(sim, probe)
+    eager_rate, _, _ = timed_run(sim, probe, EAGER_TIMED)
     sim._eager = False
-    log(f"Simulator, eager: {eager_rate:.0f} steps/s over {TIMED} steps; "
+    log(f"Simulator, eager: {eager_rate:.0f} steps/s over {EAGER_TIMED} "
+        f"steps; "
         f"fastest graph length {best} steps")
 
     # against the fast path's trace of the same velocities (phase 5)
@@ -804,17 +834,36 @@ def simulator_accuracy(space_cls):
     return err
 
 
-def run_cli(name, *args):
-    """Phases 10 and 13: ``python -m sspslam_tpu_torch.experiments.<name>``
+# Runs a CLI module as ``python -m`` does (runpy, as __main__), then prints
+# the VCO kernel's launch count of that process.
+_COUNTED_CLI = """
+import runpy, sys
+name, sys.argv = sys.argv[1], sys.argv[1:]
+from sspslam_tpu_torch.ops import vco_scan
+runpy.run_module(name, run_name="__main__", alter_sys=True)
+print(f"vco_scan launches: {vco_scan.vco_scan.launches}")
+"""
+
+
+def run_cli(name, *args, count_launches=False):
+    """Phases 10, 13 and 18: ``python -m sspslam_tpu_torch.experiments.<name>``
     with ``args``, as a user runs it; it must exit 0 and print finite
-    errors.  Returns (final error, median error, seconds)."""
+    errors.  With ``count_launches`` the module runs through runpy in a
+    child that then prints the VCO kernel's launches, which must be 0.
+    Returns (final error, median error, seconds)."""
+    module = f"sspslam_tpu_torch.experiments.{name}"
+    cmd = ([sys.executable, "-c", _COUNTED_CLI, module] if count_launches
+           else [sys.executable, "-m", module])
     t0 = time.perf_counter()
     proc = subprocess.run(
-        [sys.executable, "-m", f"sspslam_tpu_torch.experiments.{name}",
-         *args],
-        cwd=Path(__file__).resolve().parent, capture_output=True, text=True,
-        timeout=600)
+        [*cmd, *args], cwd=Path(__file__).resolve().parent,
+        capture_output=True, text=True, timeout=600)
     seconds = time.perf_counter() - t0
+    if count_launches and proc.returncode == 0:
+        line = next(l for l in proc.stdout.splitlines()
+                    if l.startswith("vco_scan launches:"))
+        if int(line.split()[-1]) != 0:
+            raise AssertionError(f"{name} launched vco_scan: {line}")
     for line in proc.stdout.splitlines():
         if not line.startswith("  sim "):
             log(f"  {name}: {line.strip()}")
@@ -846,13 +895,16 @@ def slam_world():
     return path, vels, landmarks, landmarks[None, :, :] - path[:, None, :]
 
 
-def slam_simulator(space, world, gate_mode="reference", anchor=False):
+def slam_simulator(space, world, gate_mode="reference", anchor=False,
+                   clean_up_method="grid"):
     """bench.py --model slam's network on the port: SLAMNetwork at full
     width (800 LIF per VCO, memory 970, 100 neurons per circular-convolution
     dimension, clean-up over 100 x 100 samples in bf16) fed by the
     single-nearest adapter, the PI output probed through a 50 ms lowpass.
     With ``anchor`` the auto-recovery gate reads the first ANCHORS
-    landmarks as surveyed beacons.  Returns (simulator, probe, build s)."""
+    landmarks as surveyed beacons; ``clean_up_method`` picks the clean-up
+    (the MLP ones read ``space.decoder_params``).  Returns (simulator,
+    probe, build s)."""
     from sspslam_tpu_torch import SPSpace
     from sspslam_tpu_torch.models import (SLAMNetwork,
                                           get_anchor_input_functions,
@@ -868,7 +920,8 @@ def slam_simulator(space, world, gate_mode="reference", anchor=False):
                            pi_n_neurons=N_NEURONS, mem_n_neurons=970,
                            circonv_n_neurons=100, vel_scaling_factor=scale,
                            cleanup_samples_per_dim=100, seed=SEED,
-                           gate_mode=gate_mode, anchor=anchor)
+                           gate_mode=gate_mode, anchor=anchor,
+                           clean_up_method=clean_up_method)
         for f, dst in ((vel_f, slam.velocity_input),
                        (clamp_table(space.encode(path[:1]).ravel(), 0.05),
                         slam.pathintegrator.input),
@@ -1049,6 +1102,296 @@ def slam_path(space, vco):
     return out
 
 
+def n_neurons(sim):
+    return sum(be.k * be.n if be.batched else be.n
+               for be in sim.model.ensembles)
+
+
+def profile_line(what, sim):
+    """Kernels per step and device busy time, eager and replayed (one
+    profiler pass each); returns the numbers for the JSON line."""
+    k_eager, ev_eager, busy_eager, share_eager, _ = profile_steps(sim, True)
+    k_graph, _, busy_graph, share_graph, top = profile_steps(sim, False)
+    log(f"{what} profile over {PROFILE_STEPS} steps: eager {k_eager:.2f} "
+        f"kernels per step ({ev_eager:.2f} device events), busy "
+        f"{busy_eager:.1f} us per step = {share_eager * 100:.1f} %; graph "
+        f"replay {k_graph:.2f} kernels per step, busy {busy_graph:.1f} us "
+        f"per step = {share_graph * 100:.1f} %")
+    for name, us, calls in top:
+        log(f"  {what} graph replay, per step: {us:6.2f} us in {calls:.2f} x "
+            f"{name}")
+    return {"kernels_per_step_eager": k_eager,
+            "kernels_per_step_graph": k_graph,
+            "device_busy_us_per_step_eager": busy_eager,
+            "device_busy_us_per_step_graph": busy_graph,
+            "device_busy_share_graph": share_graph, "top_kernels_graph": top}
+
+
+def full_checks(what, sim, probe, space, path, build_s, steps=TIMED):
+    """Phases 14 and 15 (and 16's direct-optim): the neuron count and build
+    time; graph replay against eager over LONG steps; kernels per step;
+    the tracking cosine over one run of the world (printed, finite, not
+    gated); steps/s over ``steps`` timed steps after one CHUNK-step
+    warm-up, the card's clocks and power read just before and after."""
+    out = {"neurons": n_neurons(sim), "build_s": build_s}
+    log(f"{what} build (d={space.ssp_dim}, {out['neurons']} neurons): "
+        f"{build_s:.1f} s")
+    out["graph_vs_eager_max_abs"], out["steps_per_s_eager"] = \
+        replay_vs_eager(sim, probe, what)
+    out.update(profile_line(what, sim))
+    if path is not None:
+        sim.reset()
+        sim.run_steps(WORLD_STEPS)
+        trace = sim.data[probe]
+        cos = tracking_cosine(space, trace, path)
+        log(f"{what} tracking cosine (last quarter of the {WORLD_STEPS}-step "
+            f"world): {cos:.4f} (printed, not gated)")
+        if not (trace.shape == (WORLD_STEPS, space.ssp_dim)
+                and np.all(np.isfinite(trace)) and np.isfinite(cos)):
+            raise AssertionError(f"{what}: the world's trace is not finite")
+        out["tracking_cosine"] = cos
+    rate, timed, window = timed_run(sim, probe, steps)
+    log(f"{what}: {rate:.0f} steps/s over {steps} steps (graphs of "
+        f"{sim._graph_steps} steps); window ({ClockSampler.QUERY}): just "
+        f"before {window[0]}; just after {window[1]}")
+    if not np.all(np.isfinite(timed)):
+        raise AssertionError(f"{what}: the timed run is not finite")
+    out["steps_per_s"] = rate
+    out["timed_window_nvidia_smi"] = window
+    return out
+
+
+def gated_simulator(space, world):
+    """Phase 14's network: SLAMGatedNetwork at full width (800 LIF per VCO,
+    memory 970, 100 neurons per circular-convolution dimension and for the
+    dot product) on bench.py --model slam's traffic through the
+    single-nearest adapter, the PI output probed through a 50 ms
+    lowpass."""
+    from sspslam_tpu_torch import SPSpace
+    from sspslam_tpu_torch.models import (SLAMGatedNetwork,
+                                          get_slam_input_functions)
+    from sspslam_tpu_torch.nef import (Connection, Network, Node, Probe,
+                                       Simulator, clamp_table)
+    path, vels, landmarks, vec = world
+    lm_space = SPSpace(SLAM_LANDMARKS, space.ssp_dim, seed=SEED)
+    (vel_f, scale, in_view_f, _, sp_f, _, vecssp_f) = \
+        get_slam_input_functions(space, lm_space, vels, vec, VIEW_RAD)
+    with Network(seed=SEED) as net:
+        slam = SLAMGatedNetwork(
+            space, lm_space, VIEW_RAD, SLAM_LANDMARKS,
+            pi_n_neurons=N_NEURONS, mem_n_neurons=970,
+            circonv_n_neurons=100, dotprod_n_neurons=100,
+            vel_scaling_factor=scale, seed=SEED)
+        for f, dst in ((vel_f, slam.velocity_input),
+                       (clamp_table(space.encode(path[:1]).ravel(), 0.05),
+                        slam.pathintegrator.input),
+                       (sp_f, slam.landmark_sp_input),
+                       (vecssp_f, slam.landmark_vecssp_input),
+                       (in_view_f, slam.no_landmark_in_view)):
+            Connection(Node(f), dst, synapse=None)
+        probe = Probe(slam.pathintegrator.output, synapse=0.05)
+    t0 = time.perf_counter()
+    sim = Simulator(net, seed=SEED, device="cuda")
+    return sim, probe, time.perf_counter() - t0
+
+
+def view_simulator(space, world, gate_mode="reference", anchor=False):
+    """Phase 15's network: SLAMViewNetwork at run_slamview's default widths
+    (700 LIF per VCO, memory 970, grid clean-up over 100 x 100 samples)
+    fed by get_slamview_input_functions on bench.py --model slam's world;
+    with ``anchor`` the auto-recovery gate reads the first ANCHORS
+    landmarks as surveyed beacons."""
+    from sspslam_tpu_torch import SPSpace
+    from sspslam_tpu_torch.models import (SLAMViewNetwork,
+                                          get_anchor_input_functions,
+                                          get_slamview_input_functions)
+    from sspslam_tpu_torch.nef import (Connection, Network, Node, Probe,
+                                       Simulator, clamp_table)
+    path, vels, landmarks, vec = world
+    lm_space = SPSpace(SLAM_LANDMARKS, space.ssp_dim, seed=SEED)
+    vel_f, scale, in_view_f, view_f = get_slamview_input_functions(
+        space, lm_space, vels, vec, VIEW_RAD)
+    with Network(seed=SEED) as net:
+        slam = SLAMViewNetwork(
+            space, lm_space, VIEW_RAD, SLAM_LANDMARKS, pi_n_neurons=700,
+            mem_n_neurons=970, circonv_n_neurons=100,
+            vel_scaling_factor=scale, cleanup_samples_per_dim=100,
+            seed=SEED, gate_mode=gate_mode, anchor=anchor)
+        for f, dst in ((vel_f, slam.velocity_input),
+                       (clamp_table(space.encode(path[:1]).ravel(), 0.05),
+                        slam.pathintegrator.input),
+                       (view_f, slam.view_input),
+                       (in_view_f, slam.no_landmark_in_view)):
+            Connection(Node(f), dst, synapse=None)
+        if anchor:
+            tables = get_anchor_input_functions(
+                space, vec, np.arange(ANCHORS), landmarks[:ANCHORS],
+                VIEW_RAD)
+            for f, dst in zip(tables, (slam.anchor_pos_input,
+                                       slam.anchor_vec_ssp,
+                                       slam.no_anchor_in_view)):
+                Connection(Node(f), dst, synapse=None)
+        probe = Probe(slam.pathintegrator.output, synapse=0.05)
+    t0 = time.perf_counter()
+    sim = Simulator(net, seed=SEED, device="cuda")
+    return sim, probe, time.perf_counter() - t0
+
+
+def family_models(space, vco):
+    """Phases 14 and 15: SLAMGatedNetwork and SLAMViewNetwork at full width
+    on bench.py --model slam's world; the VCO kernel launches 0 times."""
+    world = slam_world()
+    vco.vco_scan.launches = 0
+    out = {}
+    sim, probe, build_s = gated_simulator(space, world)
+    out["gated"] = full_checks("SLAMGatedNetwork", sim, probe, space,
+                               world[0], build_s)
+    out["gated"]["vco_scan_launches"] = vco.vco_scan.launches
+    del sim
+    vco.vco_scan.launches = 0
+    sim, probe, build_s = view_simulator(space, world)
+    out["view"] = full_checks("SLAMViewNetwork", sim, probe, space,
+                              world[0], build_s)
+    del sim
+    sim, probe, build_s = view_simulator(space, world, "auto_recovery",
+                                         anchor=True)
+    log(f"SLAMViewNetwork, auto-recovery gate with {ANCHORS} anchors: build "
+        f"{build_s:.1f} s")
+    out["view"]["anchor_graph_vs_eager_max_abs"], \
+        out["view"]["anchor_steps_per_s_eager"] = replay_vs_eager(
+            sim, probe, "SLAMViewNetwork, auto-recovery + anchor")
+    out["view"]["vco_scan_launches"] = vco.vco_scan.launches
+    del sim
+    for name in ("gated", "view"):
+        if out[name]["vco_scan_launches"] != 0:
+            raise AssertionError(f"the {name} path launched vco_scan")
+    return out
+
+
+DECODE_POINTS = 1_000
+CLEANUP_TIMED = 20_000   # direct-optim's timed steps (one warm-up segment)
+
+
+def cleanup_methods(vco):
+    """Phase 16: the MLP decoder trained at its defaults on the card; the
+    four decode methods on DECODE_POINTS random points (direct-optim must
+    decode no worse than from-set, the median error); SLAMNetwork at phase
+    11's width with each Newton / MLP clean-up through the Simulator."""
+    from sspslam_tpu_torch import HexagonalSSPSpace
+    space = make_space(HexagonalSSPSpace)
+    vco.vco_scan.launches = 0
+    out = {}
+    t0 = time.perf_counter()
+    history = space.train_decoder_net(load_file=False, save_file=False,
+                                      device="cuda")
+    out["train_decoder_s"] = time.perf_counter() - t0
+    out["train_decoder_final_loss"] = history[-1]
+    log(f"train_decoder_net at its defaults (200,000 Rd points, 20 epochs, "
+        f"batch 2,048) on the card: {out['train_decoder_s']:.1f} s, final "
+        f"loss {history[-1]:.5f}")
+    if not np.isfinite(history[-1]) or history[-1] >= history[0]:
+        raise AssertionError(f"decoder training did not learn: {history}")
+
+    pts = np.random.default_rng(SEED).uniform(-1, 1, (DECODE_POINTS, 2))
+    ssps = space.encode(pts)
+    errs = {}
+    for method in ("from-set", "direct-optim", "network", "network-optim"):
+        t0 = time.perf_counter()
+        got = space.decode(ssps, method, num_samples=100, device="cuda")
+        secs = time.perf_counter() - t0
+        errs[method] = float(np.median(np.linalg.norm(got - pts, axis=1)))
+        log(f"decode {method}: median error {errs[method]:.3e} over "
+            f"{DECODE_POINTS} points ({secs:.2f} s)")
+        if not np.all(np.isfinite(got)):
+            raise AssertionError(f"decode {method} is not finite")
+    if not errs["direct-optim"] <= errs["from-set"]:
+        raise AssertionError(f"direct-optim decodes worse than from-set: "
+                             f"{errs}")
+    out["decode_median_error"] = errs
+
+    world = slam_world()
+    for method in ("direct-optim", "network", "network-optim"):
+        sim, probe, build_s = slam_simulator(space, world,
+                                             clean_up_method=method)
+        what = f"SLAM, {method} clean-up"
+        if method == "direct-optim":
+            out[method] = full_checks(what, sim, probe, space, None,
+                                      build_s, steps=CLEANUP_TIMED)
+        else:
+            log(f"{what}: build {build_s:.1f} s")
+            out[method] = dict(zip(
+                ("graph_vs_eager_max_abs", "steps_per_s_eager"),
+                replay_vs_eager(sim, probe, what)))
+        del sim
+    out["vco_scan_launches"] = vco.vco_scan.launches
+    if out["vco_scan_launches"] != 0:
+        raise AssertionError("the clean-up paths launched vco_scan")
+    return out
+
+
+VARIANT_STEPS = 1_000
+
+
+def pi_variants(space, vco):
+    """Phase 17: PathIntegrationReencode, PathIntegrationGC and
+    PathIntegrationBCsGCs at ssp_dim 97 and 800 neurons per ensemble on
+    bench.py --model pi's velocities from an SSP clamped at the origin:
+    graph replay against eager over VARIANT_STEPS steps and the decoded
+    error at the end (printed, not gated)."""
+    from sspslam_tpu_torch.models import (PathIntegrationBCsGCs,
+                                          PathIntegrationGC,
+                                          PathIntegrationReencode)
+    from sspslam_tpu_torch.nef import (Connection, Network, Node, Probe,
+                                       Simulator, TimeTable, clamp_table)
+    vels = traffic()[:VARIANT_STEPS]
+    truth = np.cumsum(vels, axis=0)[-1] * 0.001
+    makers = {
+        "reencode": lambda: PathIntegrationReencode(space, N_NEURONS, 0.05),
+        "gc": lambda: PathIntegrationGC(space, N_NEURONS, 0.05),
+        "bcsgcs": lambda: PathIntegrationBCsGCs(space, N_NEURONS, N_NEURONS,
+                                                0.05),
+    }
+    vco.vco_scan.launches = 0
+    out = {}
+    for name, make in makers.items():
+        with Network(seed=SEED) as net:
+            pi = make()
+            Connection(Node(TimeTable(vels)), pi.velocity_input,
+                       synapse=None)
+            Connection(Node(clamp_table(space.encode(np.zeros((1, 2)))
+                                        .ravel(), 0.05)), pi.input,
+                       synapse=None)
+            probe = Probe(pi.output, synapse=0.05)
+        t0 = time.perf_counter()
+        sim = Simulator(net, seed=SEED, device="cuda")
+        build_s = time.perf_counter() - t0
+        traces = {}
+        for eager in (False, True):
+            sim.reset()
+            sim._eager = eager
+            sim.run_steps(VARIANT_STEPS, segment_steps=VARIANT_STEPS)
+            traces[eager] = sim.data[probe]
+        sim._eager = False
+        err = float(np.abs(traces[False] - traces[True]).max())
+        dec = decode(space, traces[False][-1])
+        dist = float(np.linalg.norm(dec - truth))
+        log(f"{name} (d={space.ssp_dim}, {n_neurons(sim)} neurons, build "
+            f"{build_s:.1f} s): graph replay vs eager, {VARIANT_STEPS} "
+            f"steps: max-abs {err:.3e} (tol {REPLAY_TOL}); decoded error at "
+            f"the end {dist:.4f} (printed, not gated)")
+        if not (np.all(np.isfinite(traces[False])) and err <= REPLAY_TOL):
+            raise AssertionError(f"{name}: graph replay differs from the "
+                                 f"eager step: {err}")
+        out[name] = {"neurons": n_neurons(sim), "build_s": build_s,
+                     "graph_vs_eager_max_abs": err,
+                     "decoded_error_at_end": dist}
+        del sim
+    out["vco_scan_launches"] = vco.vco_scan.launches
+    if out["vco_scan_launches"] != 0:
+        raise AssertionError("the PI variants launched vco_scan")
+    return out
+
+
 def time_checkout(root: str) -> None:
     """``--time ROOT``: ms per CHUNK-step chunk of the ``vco_scan`` of the
     checkout at ``root``, at the cluster size it picks, on the main path's
@@ -1091,9 +1434,9 @@ def main() -> int:
 
     # 1. device
     smi = nvidia_smi()
-    name = torch.cuda.get_device_name(0)
+    card = torch.cuda.get_device_name(0)
     num_sms = torch.cuda.get_device_properties(0).multi_processor_count
-    log(f"torch {torch.__version__} (CUDA {torch.version.cuda}), {name}, "
+    log(f"torch {torch.__version__} (CUDA {torch.version.cuda}), {card}, "
         f"{num_sms} SMs; nvidia-smi: {smi}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1149,6 +1492,18 @@ def main() -> int:
     slam["run_slam"] = {"final_error": final, "median_error": median,
                         "seconds": seconds}
 
+    # 14-18. the rest of the model family
+    family = family_models(space, vco)
+    family["cleanup"] = cleanup_methods(vco)
+    family["pi_variants"] = pi_variants(space, vco)
+    for key, cli, args in (
+            ("run_slamview", "run_slamview", ("--T", "20")),
+            ("run_slam_gated", "run_slam", ("--backend", "gated", "--T",
+                                            "20"))):
+        final, median, seconds = run_cli(cli, *args, count_launches=True)
+        family[key] = {"final_error": final, "median_error": median,
+                       "seconds": seconds, "vco_scan_launches": 0}
+
     ms = float(np.mean(full[chosen]))
     b_ms, b_by = bound_ms(fpi.n, fpi.k, fpi.d, fpi.N, CHUNK, spikes)
     log(f"bound per {CHUNK}-step chunk ({spikes} spikes): {b_ms:.4f} ms "
@@ -1156,7 +1511,8 @@ def main() -> int:
         f"bound")
     print(json.dumps({"simulator": simulator}), flush=True)
     print(json.dumps({"slam": slam}), flush=True)
-    log(nvidia_smi())
+    print(json.dumps({"family": family}), flush=True)
+    print(nvidia_smi(), flush=True)
     print(json.dumps({"kernels": [{
         "name": "vco_scan", "route": "cuda",
         "source": "sspslam_tpu_torch/csrc/vco_scan.cu",
@@ -1176,9 +1532,19 @@ def main() -> int:
                         "pi-fast traffic)"],
         "launches_on_simulator_paths": {
             "pi (phase 8)": simulator["vco_scan_launches"],
-            "slam (phases 11-12)": slam["vco_scan_launches"]}}]}))
+            "slam (phases 11-12)": slam["vco_scan_launches"],
+            "slam_gated (phase 14)": family["gated"]["vco_scan_launches"],
+            "slam_view (phase 15)": family["view"]["vco_scan_launches"],
+            "cleanup methods (phase 16)":
+                family["cleanup"]["vco_scan_launches"],
+            "pi variants (phase 17)":
+                family["pi_variants"]["vco_scan_launches"],
+            "run_slamview (phase 18)":
+                family["run_slamview"]["vco_scan_launches"],
+            "run_slam --backend gated (phase 18)":
+                family["run_slam_gated"]["vco_scan_launches"]}}]}))
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": name,
+        "platform": "gpu", "kind": card,
         "count": torch.cuda.device_count()}}))
     return 0
 

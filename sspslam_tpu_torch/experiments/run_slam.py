@@ -1,14 +1,17 @@
 """Full SSP-SLAM CLI on the port: the flags, metrics, learned-map
 extraction, npz schema and printed lines of the JAX package's
-``experiments/run_slam.py``, with ``--device`` (default ``cuda``) in place
-of ``--backend``.
+``experiments/run_slam.py``, with ``--device`` (default ``cuda``) naming
+where the simulation runs.
 
-    python -m sspslam_tpu_torch.experiments.run_slam [--device cpu] ...
+    python -m sspslam_tpu_torch.experiments.run_slam [--device cpu] \
+        [--backend jit|gated] ...
 
-The network is ``SLAMNetwork``, stepped by the port's :class:`Simulator`
-(CUDA graphs on the card).  Not ported: the JAX CLI's ``--backend gated``
-(the all-neural ``SLAMGatedNetwork``, ROADMAP.md Queue 1 item 6.1),
-``--backend numpy`` (the NumPy interpreter) and ``--plot`` (item 6.7).
+``--backend jit`` (default) builds ``SLAMNetwork``; ``--backend gated``
+the all-neural ``SLAMGatedNetwork`` (no learned-map extraction, as in the
+JAX CLI).  Either is stepped by the port's :class:`Simulator` (CUDA graphs
+on the card).  Not ported: ``--backend numpy`` (the NumPy interpreter,
+ROADMAP.md Queue 1 item 6.1; ``--backend cpu`` is ``--device cpu`` here)
+and ``--plot`` (item 6.7).
 """
 
 import argparse
@@ -16,8 +19,8 @@ import time
 
 import numpy as np
 
-from ..models import (SLAMNetwork, get_slam_input_functions,
-                      get_slam_input_functions2)
+from ..models import (SLAMGatedNetwork, SLAMNetwork,
+                      get_slam_input_functions, get_slam_input_functions2)
 from ..nef import (LIF, Connection, Ensemble, LIFRate, LoihiLIF, Network,
                    Node, Probe, QuantizedLIF, RectifiedLinear, Simulator)
 from ..sspspace import SPSpace
@@ -27,14 +30,20 @@ from .common import (DT, add_common_args, decode_output, make_path,
                      make_space, save_npz)
 
 
+BACKENDS = {"jit": "jit", "ocl": "jit", "tpu": "jit", "gated": "gated",
+            "loihi": "gated", "loihi-sim": "gated"}
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(
-        description="SSP-SLAM on the port. The JAX CLI's --backend gated "
-                    "(SLAMGatedNetwork) and --backend numpy (the NumPy "
-                    "interpreter) are not ported yet (ROADMAP.md Queue 1 "
+        description="SSP-SLAM on the port. --backend numpy (the NumPy "
+                    "interpreter) is not ported yet (ROADMAP.md Queue 1 "
                     "item 6.1), nor is --plot (item 6.7).",
         formatter_class=argparse.ArgumentDefaultsHelpFormatter)
     add_common_args(parser, default_T=200.0)
+    parser.add_argument("--backend", default="jit",
+                        help="jit: SLAMNetwork; gated: the all-neural "
+                             "SLAMGatedNetwork (both on --device)")
     parser.add_argument("--n-landmarks", default=50, type=int)
     parser.add_argument("--view-rad", default=0.2, type=float)
     parser.add_argument("--update-thres", default=0.2, type=float)
@@ -60,6 +69,15 @@ def main(argv=None):
                         help="lif | loihi | quantized (model-wide default; "
                              "loihi = dt-grid Loihi-discretised LIF)")
     args = parser.parse_args(argv)
+    backend = args.backend.lower()
+    if backend in ("cpu", "numpy"):
+        raise NotImplementedError(
+            f"--backend {backend}: the port runs on --device (--device cpu "
+            "for the CPU); the NumPy interpreter is not ported (ROADMAP.md "
+            "Queue 1 item 6.1)")
+    if backend not in BACKENDS:
+        raise SystemExit(f"unknown backend {args.backend!r}")
+    backend = BACKENDS[backend]
     if args.plot:
         raise NotImplementedError(
             "--plot is not ported yet (ROADMAP.md Queue 1 item 6.7); "
@@ -111,25 +129,35 @@ def main(argv=None):
         landmark_id = Node(landmark_sp_func, label="lm_sp_input")
         is_landmark = Node(is_landmark_in_view, label="lm_in_view_input")
 
-        slam = SLAMNetwork(
-            ssp_space, lm_space, view_rad, n_landmarks,
-            args.pi_n_neurons, args.mem_n_neurons,
-            args.circonv_n_neurons,
-            tau_pi=tau, update_thres=args.update_thres,
-            vel_scaling_factor=vel_scaling_factor,
-            shift_rate=args.shift_rate, voja_learning_rate=args.voja_lr,
-            pes_learning_rate=args.pes_lr, intercept=args.intercept,
-            clean_up_method=None if args.no_cleanup else "grid",
-            gc_n_neurons=args.gc_n_neurons,
-            voja=not args.no_voja, seed=args.seed)
-        Connection(landmark_vec, slam.landmark_vec_ssp, synapse=None)
-        Connection(landmark_id, slam.landmark_id_input, synapse=None)
-        Connection(is_landmark, slam.no_landmark_in_view, synapse=None)
-        Connection(vel_input, slam.velocity_input, synapse=vel_syn)
+        if backend == "gated":
+            slam = SLAMGatedNetwork(
+                ssp_space, lm_space, view_rad, n_landmarks,
+                args.pi_n_neurons, args.mem_n_neurons,
+                args.circonv_n_neurons, args.circonv_n_neurons,
+                vel_input, landmark_vec, landmark_id, is_landmark,
+                tau_pi=tau, update_thres=args.update_thres,
+                vel_scaling_factor=vel_scaling_factor,
+                shift_rate=0.1, pes_learning_rate=1e-3, seed=args.seed)
+        else:
+            slam = SLAMNetwork(
+                ssp_space, lm_space, view_rad, n_landmarks,
+                args.pi_n_neurons, args.mem_n_neurons,
+                args.circonv_n_neurons,
+                tau_pi=tau, update_thres=args.update_thres,
+                vel_scaling_factor=vel_scaling_factor,
+                shift_rate=args.shift_rate, voja_learning_rate=args.voja_lr,
+                pes_learning_rate=args.pes_lr, intercept=args.intercept,
+                clean_up_method=None if args.no_cleanup else "grid",
+                gc_n_neurons=args.gc_n_neurons,
+                voja=not args.no_voja, seed=args.seed)
+            Connection(landmark_vec, slam.landmark_vec_ssp, synapse=None)
+            Connection(landmark_id, slam.landmark_id_input, synapse=None)
+            Connection(is_landmark, slam.no_landmark_in_view, synapse=None)
+            Connection(vel_input, slam.velocity_input, synapse=vel_syn)
         Connection(init_state, slam.pathintegrator.input, synapse=None)
 
         slam_output_p = Probe(slam.pathintegrator.output, synapse=0.05)
-        if args.save:
+        if args.save and backend != "gated":
             mem_weights = Probe(slam.assomemory.conn_out, attr="weights",
                                 sample_every=T)
             if not args.no_voja:
@@ -180,27 +208,34 @@ def main(argv=None):
         else:
             sig_to_noise_ratio = 0
 
-        # learned-map extraction: the final PES decoders times the memory's
-        # rates on the landmark SPs, through the final (probed) Voja
-        # encoders
-        decoders = sim.data[mem_weights][-1].T          # (n, d)
-        be = next(b for b in sim.model.ensembles
-                  if b.obj is slam.assomemory.memory)
-        if not args.no_voja:
-            scaled_enc = sim.data[mem_encoders][-1]
+        if backend != "gated":
+            # learned-map extraction: the final PES decoders times the
+            # memory's rates on the landmark SPs, through the final
+            # (probed) Voja encoders
+            decoders = sim.data[mem_weights][-1].T          # (n, d)
+            be = next(b for b in sim.model.ensembles
+                      if b.obj is slam.assomemory.memory)
+            if not args.no_voja:
+                scaled_enc = sim.data[mem_encoders][-1]
+            else:
+                scaled_enc = be.scaled_encoders
+            J = lm_space.vectors @ scaled_enc.T + be.bias
+            activities = be.neuron_type.rates_np(J)
+            landmark_ssps_est = activities @ decoders
+            landmark_loc_est = decode_output(ssp_space, landmark_ssps_est,
+                                             domain_dim, device=device)
+            map_err = np.linalg.norm(landmark_loc_est - obj_locs, axis=1)
+            print(f"learned-map median landmark error: "
+                  f"{np.median(map_err):.3f}")
         else:
-            scaled_enc = be.scaled_encoders
-        J = lm_space.vectors @ scaled_enc.T + be.bias
-        activities = be.neuron_type.rates_np(J)
-        landmark_ssps_est = activities @ decoders
-        landmark_loc_est = decode_output(ssp_space, landmark_ssps_est,
-                                         domain_dim, device=device)
-        map_err = np.linalg.norm(landmark_loc_est - obj_locs, axis=1)
-        print(f"learned-map median landmark error: {np.median(map_err):.3f}")
+            landmark_ssps_est = np.array([])
+            landmark_loc_est = np.array([])
 
         extra = args.save_name_extra
         if args.domain_dim != 2:
             extra = "_dim_" + str(args.domain_dim)
+        if backend == "gated":
+            extra = "_backend_gated" + extra
         if device != "cpu":
             extra = "_device_" + device + extra
         if args.approx_vel:

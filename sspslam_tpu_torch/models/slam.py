@@ -1,7 +1,7 @@
 """SSP-SLAM: path integration + associative map + landmark loop closure.
 
 Port of :mod:`sspslam_tpu.models.slam`: ``SLAMNetwork``, its node
-functions (the grid clean-up, the reference correction gate and the
+functions (the four clean-ups, the reference correction gate and the
 auto-recovery gate with its anchor channels) and the data adapters, with
 the same public names.  The node functions are torch closures the step
 runs; they never synchronise with the host, so the Simulator captures the
@@ -16,9 +16,8 @@ takes effect at the next step or graph replay.  (The JAX package offers
 this as an option, ``SSPSLAM_HOIST_*``, for the TPU's on-chip memory; in
 the port it is the only layout.)
 
-Not ported: the clean-up methods ``direct-optim``, ``network`` and
-``network-optim`` (ROADMAP Queue 1 item 1) and the NumPy mirrors the JAX
-package keeps for its host interpreter.
+Not ported: the NumPy mirrors the JAX package keeps for its host
+interpreter.
 """
 
 from __future__ import annotations
@@ -30,6 +29,7 @@ from ..nef import Connection, Ensemble, Network, Node, ScatteredHypersphere
 from ..nef.distributions import CosineSimilarity
 from ..nef.processes import TimeTable
 from ..ops import vsa
+from ..sspspace import _mlp_apply, _newton_refine_core
 from .associativememory import AssociativeMemory
 from .binding import CircularConvolution
 from .pathintegration import PathIntegration
@@ -49,41 +49,102 @@ def _consts_on(hoisted: dict, device) -> dict:
 
 
 def make_cleanup_fun(ssp_space, method="grid", samples_per_dim=100,
-                     sim_dtype=None):
+                     sim_dtype=None, newton_iters=8):
     """Return ``(cleanup_fun, sample_ssps, sample_points)``: the clean-up
     of the PI output inside the step.
 
-    ``'grid'``: the argmax of the similarity against a sample bank of
-    ``samples_per_dim`` points per axis, the row gathered from the float32
-    bank.  ``sim_dtype`` is the similarity product's dtype (default
+    - ``'grid'``: the argmax of the similarity against a sample bank of
+      ``samples_per_dim`` points per axis, the row gathered from the
+      float32 bank.
+    - ``'direct-optim'``: the grid argmax's point as the start, then
+      ``newton_iters`` damped-Newton steps on the Fourier-domain
+      similarity (:func:`sspspace._newton_refine_core`), then phi(x*).
+    - ``'network'``: the trained MLP decoder's point, re-encoded (an
+      untrained space is trained first: ``train_decoder_net()`` on its
+      default device, the card).
+    - ``'network-optim'``: the MLP's point as the start, then the Newton
+      polish.
+    - ``None``: no clean-up (returns three Nones).
+
+    ``sim_dtype`` is the grid similarity product's dtype (default
     :func:`vsa.default_cleanup_dtype`: bfloat16 unless
-    SSPSLAM_CLEANUP_F32=1).  ``cleanup_fun(x, consts)`` reads the banks
-    from ``consts`` (``hoisted_consts``: ``bank`` float32, ``bank_sim`` in
-    ``sim_dtype``, so a bf16 bank is not cast every step); called without
-    them it copies its own to ``x``'s device.  ``None``: no clean-up
-    (returns three Nones)."""
+    SSPSLAM_CLEANUP_F32=1).  Every table the function reads is in
+    ``cleanup_fun.hoisted_consts`` (``bank`` float32 and ``bank_sim`` in
+    ``sim_dtype``, so a bf16 bank is not cast every step; the grid's
+    ``points``; the Newton polish's ``mat`` = phase / length scale, the
+    DFT tables ``C_mat`` / ``S_mat`` and the bounds ``lo`` / ``hi``; the
+    MLP's ``mlp0``-``mlp5``; ``phase`` and ``ls`` for the re-encode):
+    ``cleanup_fun(x, consts)`` reads them from ``consts``, and called
+    without them it copies its own to ``x``'s device.  ``x`` is (..., d).
+    """
     if method is None:
         return None, None, None
-    if method in ("direct-optim", "network", "network-optim"):
-        raise NotImplementedError(
-            f"clean_up_method {method!r} is not ported yet (the Newton "
-            "polish and the MLP decoder, ROADMAP.md Queue 1 item 1); use "
-            "'grid' or None")
-    if method != "grid":
+    if method not in ("grid", "direct-optim", "network", "network-optim"):
         raise ValueError(
             f"clean_up_method {method!r}: use 'grid', 'direct-optim', "
             "'network', 'network-optim' or None")
 
     sdt = vsa.default_cleanup_dtype() if sim_dtype is None else sim_dtype
-    sample_ssps, sample_points = ssp_space.get_sample_pts_and_ssps(
-        samples_per_dim)
-    bank = torch.as_tensor(np.asarray(sample_ssps, np.float32))
-    hoisted = {"bank": bank.numpy(), "bank_sim": bank.to(sdt)}
+    n = ssp_space.domain_dim
+    hoisted = {}
+    sample_ssps = sample_points = None
+    if method in ("grid", "direct-optim"):
+        sample_ssps, sample_points = ssp_space.get_sample_pts_and_ssps(
+            samples_per_dim)
+        bank = torch.as_tensor(np.asarray(sample_ssps, np.float32))
+        if method == "grid":
+            hoisted["bank"] = bank.numpy()
+        else:
+            hoisted["points"] = np.asarray(sample_points, np.float32)
+        hoisted["bank_sim"] = bank.to(sdt)
+    if method in ("network", "network-optim"):
+        if ssp_space.decoder_params is None:
+            ssp_space.train_decoder_net()
+        for i, p in enumerate(ssp_space.decoder_params):
+            hoisted[f"mlp{i}"] = np.array(p, np.float32)
+    if method != "grid":
+        hoisted["phase"] = np.asarray(ssp_space.phase_matrix, np.float32)
+        hoisted["ls"] = np.asarray(ssp_space.length_scale,
+                                   np.float32).ravel()
+    if method in ("direct-optim", "network-optim"):
+        d = ssp_space.ssp_dim
+        hoisted["mat"] = np.asarray(
+            ssp_space.phase_matrix
+            / np.asarray(ssp_space.length_scale).reshape(1, -1), np.float32)
+        # DFT tables for the target spectrum conj(F(v)) in real
+        # arithmetic: F = C v - i S v, conj(F) = C v + i S v
+        jk = 2 * np.pi * np.outer(np.arange(d), np.arange(d)) / d
+        hoisted["C_mat"] = np.cos(jk).astype(np.float32)
+        hoisted["S_mat"] = np.sin(jk).astype(np.float32)
+        if ssp_space.domain_bounds is not None:
+            hoisted["lo"] = ssp_space.domain_bounds[:, 0].astype(np.float32)
+            hoisted["hi"] = ssp_space.domain_bounds[:, 1].astype(np.float32)
+
+    def grid_point(x, c):
+        best = torch.argmax(vsa.similarity(c["bank_sim"],
+                                           x.to(c["bank_sim"].dtype)), dim=-1)
+        return c["points"].index_select(0, best.reshape(-1)).reshape(
+            x.shape[:-1] + (n,))
+
+    def mlp_point(x, c):
+        return _mlp_apply([c[f"mlp{i}"] for i in range(6)], x)
+
+    def newton_polish(x, x0, c):
+        u = vsa.make_unitary(x)
+        lo_hi = (c["lo"], c["hi"]) if "lo" in c else None
+        pt = _newton_refine_core(c["mat"], u @ c["C_mat"].T,
+                                 u @ c["S_mat"].T, x0, lo_hi, newton_iters)
+        return vsa.encode(c["phase"], pt, c["ls"])
 
     def cleanup_fun(x, consts=None):
-        if consts is None:
-            consts = _consts_on(hoisted, x.device)
-        return vsa.nearest_row(consts["bank"], consts["bank_sim"], x)
+        c = _consts_on(hoisted, x.device) if consts is None else consts
+        if method == "grid":
+            return vsa.nearest_row(c["bank"], c["bank_sim"], x)
+        if method == "direct-optim":
+            return newton_polish(x, grid_point(x, c), c)
+        if method == "network":
+            return vsa.encode(c["phase"], mlp_point(x, c), c["ls"])
+        return newton_polish(x, mlp_point(x, c), c)
 
     cleanup_fun.hoisted_consts = hoisted
     return cleanup_fun, sample_ssps, sample_points

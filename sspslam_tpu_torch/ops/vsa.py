@@ -1,14 +1,16 @@
 """Vector-symbolic-algebra primitives on torch tensors.
 
-Port of the parts of :mod:`sspslam_tpu.ops.vsa` that path integration,
-SSP construction, the binding networks and SLAM use: the real
-half-spectrum DFT matrices, SSP encoding, the binding algebra (bind,
-unbind, invert, normalize, make_unitary, the identity), the clean-up
-against a sample bank, the conjugate-symmetric phase expansion, the neural
-circular convolution's transforms and the SSP <-> VCO-triple Fourier
-layouts.  The DFT stays a matmul, as in the JAX package, so both packages
-hold the same float32 matrices bitwise; ``torch.fft`` is a later
-measurement, not a given.
+Port of :mod:`sspslam_tpu.ops.vsa`, every public name: the real
+half-spectrum DFT matrices, SSP encoding (with its Fourier form and its
+Jacobian), the binding algebra (bind, unbind, invert, normalize,
+make_unitary, the identity), the clean-up against a sample bank, the
+conjugate-symmetric phase expansion and axis construction, the sub-SSP
+selectors, the neural circular convolution's transforms and the SSP <->
+VCO-triple Fourier layouts.  The DFT stays a matmul, as in the JAX
+package, so both packages hold the same float32 matrices bitwise;
+``torch.fft`` is a later measurement, not a given.  The host NumPy
+helpers (phase expansion, axes, sub-SSP selectors, binding transforms)
+are copies of the JAX package's.
 
 Conventions are those of the JAX module: ``phase_matrix`` is a
 (ssp_dim, domain_dim) conjugate-symmetric matrix, and every function treats
@@ -23,13 +25,15 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-__all__ = ["encode", "rfft_pair", "irfft_pair", "bind", "unbind", "invert",
-           "normalize", "make_unitary", "identity_vector", "similarity",
-           "default_cleanup_dtype", "nearest_row", "cleanup_from_set",
-           "conjsym",
+__all__ = ["encode", "encode_fourier", "encode_and_deriv", "rfft_pair",
+           "irfft_pair", "bind", "unbind", "invert", "normalize",
+           "make_unitary", "make_unitary_fourier", "identity_vector",
+           "similarity", "default_cleanup_dtype", "nearest_row",
+           "cleanup_from_set", "conjsym", "construct_axes_from_phases",
            "dft_half_matrices", "binding_input_transforms",
            "binding_output_transform", "to_fourier_matrix",
-           "from_fourier_matrix"]
+           "from_fourier_matrix", "sub_fourier_extract", "sub_ssp_extract",
+           "sub_fourier_project", "sub_ssp_project"]
 
 
 @lru_cache(maxsize=64)
@@ -84,18 +88,57 @@ def irfft_pair(re: torch.Tensor, im: torch.Tensor, d: int) -> torch.Tensor:
             + torch.einsum("dh,...h->...d", M_s, im))
 
 
+def _on(a, x: torch.Tensor) -> torch.Tensor:
+    """``a`` (a NumPy array, a scalar or a tensor) as a tensor of ``x``'s
+    dtype on ``x``'s device; a tensor already there is not copied, so a
+    step that passes its hoisted tables uploads nothing."""
+    if torch.is_tensor(a):
+        return a.to(device=x.device, dtype=x.dtype)
+    return torch.as_tensor(np.asarray(a, dtype=np.float64), dtype=x.dtype,
+                           device=x.device)
+
+
+def _phase_and_scale(phase_matrix, x, length_scale):
+    A = _on(phase_matrix, x)
+    ls = torch.broadcast_to(_on(length_scale, x).reshape(-1), x.shape[-1:])
+    return A, ls
+
+
 def encode(phase_matrix, x: torch.Tensor, length_scale) -> torch.Tensor:
     """SSP encoding ``IDFT(exp(i A x / l))`` of points ``x`` (..., n) in
     real arithmetic: cos/sin of the half-spectrum phases, then the
-    inverse-DFT matmul.  Returns (..., d) on ``x``'s device and dtype."""
-    A = torch.as_tensor(np.asarray(phase_matrix), dtype=x.dtype,
-                        device=x.device)
+    inverse-DFT matmul.  Returns (..., d) on ``x``'s device and dtype.
+    ``phase_matrix`` and ``length_scale`` may be host arrays or tensors
+    on ``x``'s device (a step passes tensors)."""
+    A, ls = _phase_and_scale(phase_matrix, x, length_scale)
     d = A.shape[0]
-    ls = torch.as_tensor(np.asarray(length_scale, dtype=np.float64).ravel(),
-                         dtype=x.dtype, device=x.device)
-    ls = torch.broadcast_to(ls, x.shape[-1:])
     phases = torch.einsum("hn,...n->...h", A[:d // 2 + 1], x / ls)
     return irfft_pair(torch.cos(phases), torch.sin(phases), d)
+
+
+def encode_fourier(phase_matrix, x: torch.Tensor, length_scale):
+    """(Re, Im) of the full Fourier coefficients exp(i A x / l), (..., d)."""
+    A, ls = _phase_and_scale(phase_matrix, x, length_scale)
+    phases = torch.einsum("dn,...n->...d", A, x / ls)
+    return torch.cos(phases), torch.sin(phases)
+
+
+def encode_and_deriv(phase_matrix, x: torch.Tensor, length_scale):
+    """SSP encoding and its Jacobian d phi / d x: ((..., d), (..., d, n))."""
+    A, ls = _phase_and_scale(phase_matrix, x, length_scale)
+    d = A.shape[0]
+    h = d // 2 + 1
+    A_ls = A / ls[None, :]
+    phases = torch.einsum("hn,...n->...h", A_ls[:h], x)
+    c, s = torch.cos(phases), torch.sin(phases)
+    phi = irfft_pair(c, s, d)
+    # d z/dx_j = i A_j z  ->  Re' = -sin * A_j, Im' = cos * A_j
+    dre = -s[..., :, None] * A_ls[:h]                     # (..., h, n)
+    dim = c[..., :, None] * A_ls[:h]
+    _, _, M_c, M_s = _rdft_mats(d, x.device, x.dtype)
+    dphi = (torch.einsum("dh,...hn->...dn", M_c, dre)
+            + torch.einsum("dh,...hn->...dn", M_s, dim))
+    return phi, dphi
 
 
 # ---------------------------------------------------------------------------
@@ -137,6 +180,13 @@ def make_unitary(v: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
     re, im = rfft_pair(v)
     mag = torch.clamp_min(torch.sqrt(re * re + im * im), eps)
     return irfft_pair(re / mag, im / mag, d)
+
+
+def make_unitary_fourier(fv, eps: float = 1e-8):
+    """Normalise (Re, Im) half-spectrum pairs onto the unit circle."""
+    re, im = fv
+    mag = torch.clamp_min(torch.sqrt(re * re + im * im), eps)
+    return re / mag, im / mag
 
 
 def identity_vector(d: int, dtype=torch.float32, *, device) -> torch.Tensor:
@@ -192,6 +242,70 @@ def conjsym(K: np.ndarray) -> np.ndarray:
     F[1 : m + 1] = K
     F[m + 1 :] = -np.flip(K, axis=0)
     return F
+
+
+def construct_axes_from_phases(K: np.ndarray, even: bool = False) -> np.ndarray:
+    """Build unit-magnitude axis vectors from an (m, n) free-phase matrix:
+    each column's conjugate-symmetric spectrum exp(i*phases) is inverse-
+    transformed to a real (2m+1[+1], n) axis bank."""
+    K = np.atleast_2d(np.asarray(K, dtype=np.float64))
+    m, n = K.shape
+    d = 2 * m + 1 + (1 if even else 0)
+    F = np.ones((d, n), dtype=complex)
+    F[1:m + 1] = np.exp(1j * K)
+    F[d - m:] = np.conj(np.exp(1j * K))[::-1]
+    return np.fft.ifft(F, axis=0).real
+
+
+# ---------------------------------------------------------------------------
+# Sub-SSP (multi-scale module) extraction / projection matrices
+# ---------------------------------------------------------------------------
+# A multi-scale SSP S_total of dim 2*sublen*N + 1 decomposes into N sub-SSPs,
+# each owning ``sublen`` consecutive positive frequencies (plus the shared DC
+# term and the conjugate-symmetric mirror).  These matrices pick out /
+# reassemble sub-vectors in the Fourier or time domain.
+
+def _sub_freq_selector(n: int, N: int, sublen: int, dc_scale: float):
+    """(2*sublen+1, tot) complex-frequency selection: rows pick module n's
+    positive freqs, the DC term (scaled), and the mirrored negative freqs."""
+    tot = 2 * sublen * N + 1
+    sel = np.zeros((2 * sublen + 1, tot))
+    pos = np.arange(sublen * n, sublen * (n + 1))
+    sel[np.arange(sublen), pos] = 1.0
+    sel[sublen, sublen * N] = dc_scale
+    neg = tot - np.arange(sublen * (n + 1), sublen * n, -1)
+    sel[np.arange(sublen + 1, 2 * sublen + 1), neg] = 1.0
+    return sel
+
+
+def sub_fourier_extract(n: int, N: int, sublen: int = 3) -> np.ndarray:
+    """A-bar_n: F{S_n} = A-bar_n @ F{S_total} (frequency-domain pick-out)."""
+    return _sub_freq_selector(n, N, sublen, dc_scale=1.0)
+
+
+def sub_ssp_extract(n: int, N: int, sublen: int = 3) -> np.ndarray:
+    """A_n: S_n = A_n @ S_total (time-domain pick-out), derived as
+    IDFT_small . ifftshift(A-bar_n) . DFT_big."""
+    tot = 2 * sublen * N + 1
+    FA = np.fft.ifftshift(sub_fourier_extract(n, N, sublen))
+    W = np.fft.fft(np.eye(tot))
+    invW = np.fft.ifft(np.eye(2 * sublen + 1))
+    return np.real(invW @ FA @ W)
+
+
+def sub_fourier_project(n: int, N: int, sublen: int = 3) -> np.ndarray:
+    """B-bar_n: sum_n B-bar_n @ F{S_n} = F{S_total}. The DC row is scaled by
+    1/N so the N sub-vectors' unit DC terms sum back to 1."""
+    return _sub_freq_selector(n, N, sublen, dc_scale=1.0 / N).T
+
+
+def sub_ssp_project(n: int, N: int, sublen: int = 3) -> np.ndarray:
+    """B_n: sum_n B_n @ S_n = S_total (time-domain projection)."""
+    tot = 2 * sublen * N + 1
+    FB = np.fft.ifftshift(sub_fourier_project(n, N, sublen))
+    invW = np.fft.ifft(np.eye(tot))
+    W = np.fft.fft(np.eye(2 * sublen + 1))
+    return np.real(invW @ FB @ W)
 
 
 # ---------------------------------------------------------------------------

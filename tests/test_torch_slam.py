@@ -193,11 +193,20 @@ def test_default_cleanup_dtype_follows_the_jax_switch(monkeypatch):
 
 
 def test_cleanup_methods_not_ported_raise():
+    """All four clean-up methods and None build (the MLP methods from a
+    space given its decoder, as a CPU caller must); an unknown method
+    raises ValueError."""
     space = _space(psp)
     assert pslam.make_cleanup_fun(space, None) == (None, None, None)
-    for method in ("direct-optim", "network", "network-optim"):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 1"):
-            pslam.make_cleanup_fun(space, method)
+    rng = np.random.default_rng(0)
+    space.decoder_params = [rng.normal(size=s).astype(np.float32)
+                            for s in ((D, D), (D,), (D, 8), (8,), (8, 2),
+                                      (2,))]
+    x = torch.as_tensor(space.encode([[0.2, -0.3]])[0], dtype=torch.float32)
+    for method in ("grid", "direct-optim", "network", "network-optim"):
+        fun, _, _ = pslam.make_cleanup_fun(space, method, 30)
+        out = fun(x)
+        assert out.shape == (D,) and torch.isfinite(out).all(), method
     with pytest.raises(ValueError, match="clean_up_method"):
         pslam.make_cleanup_fun(space, "nearest")
 

@@ -109,10 +109,14 @@ def test_sample_bank_bitwise():
 
 
 def test_decode_other_methods_not_ported():
-    _, ts = _pair(*SPACES[0])
-    with pytest.raises(NotImplementedError):
-        ts.decode(np.zeros((1, ts.ssp_dim)), method="direct-optim",
-                  device="cpu")
+    """Every decode method of the JAX package is ported; an unknown one
+    raises NotImplementedError, as the JAX package's decode does."""
+    js, ts = _pair(*SPACES[0])
+    for space in (js, ts):
+        kw = {"device": "cpu"} if space is ts else {}
+        with pytest.raises(NotImplementedError, match="nearest"):
+            space.decode(np.zeros((1, space.ssp_dim)), method="nearest",
+                         **kw)
 
 
 def test_decode_and_dft_matrices_need_a_device():

@@ -28,6 +28,28 @@ def host_params(jax_params):
                                   jax_params)
 
 
+def with_port_hoisted(model, np_params):
+    """``np_params`` (host_params of a JAX tree) with the hoisted tables
+    laid out as the port's build of the same network lays them out.  The
+    port hoists every table a node function reads; the JAX package keeps
+    some in closures (the Newton and MLP clean-ups, PathIntegrationReencode's
+    bank), so those come from the port's own build, and the JAX package's
+    hoisted entries are matched to the port's by their table names (the
+    entries are numbered in build order, which a port-only entry shifts)."""
+    from sspslam_tpu_torch.nef.executor import build_params
+    own = build_params(model, device="cpu")["hoisted"]
+    given = np_params.get("hoisted", {})
+    by_names = {tuple(sorted(v)): k for k, v in given.items()}
+    assert len(by_names) == len(given), "hoisted entries share their names"
+    hoisted = {}
+    for key, tables in own.items():
+        jkey = by_names.pop(tuple(sorted(tables)), None)
+        hoisted[key] = (given[jkey] if jkey is not None else
+                        {n: t.float().numpy() for n, t in tables.items()})
+    assert not by_names, f"JAX hoisted entries the port lacks: {by_names}"
+    return dict(np_params, hoisted=hoisted)
+
+
 def to_tensors(tree):
     if isinstance(tree, dict):
         return {k: to_tensors(v) for k, v in tree.items()}
@@ -69,17 +91,31 @@ def assert_close(got, want, spiking=False, what="probe"):
     assert longest <= max(5, int(0.03 * len(exc))), (what, longest)
 
 
+def assert_params_equal(model, params):
+    """The port's own ``build_params(model)`` equals ``params`` (the JAX
+    package's, carried across) leaf for leaf, dtype and bits."""
+    from sspslam_tpu_torch.nef.executor import build_params
+    own = build_params(model, device="cpu")
+    assert len(leaves(own)) == len(leaves(params)) > 0
+    for a, b in zip(leaves(own), leaves(params)):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+
+
 def step_both(jnet, pnet, n_steps, seed=0, jax_matmul=None,
-              port_matmul=None):
+              port_matmul=None, check_params=False):
     """Build ``jnet`` with the JAX package and ``pnet`` with the port, give
-    the port the JAX parameters (params_from_numpy), and step both
+    the port the JAX parameters (params_from_numpy; with ``check_params``
+    first hold them to the port's own build, bitwise), and step both
     executors ``n_steps`` times on the JAX tabulation of the inputs.
     Returns ({probe index: (steps, ...)} for JAX, the same for the port,
     the final JAX state, the final port state, the port model)."""
     jsim = JaxSimulator(jnet, seed=seed, matmul_dtype=jax_matmul)
     model = port_build(pnet, dt=jsim.dt, seed=seed, device="cpu")
-    params = params_from_numpy(model, host_params(jsim.params),
-                               device="cpu", matmul_dtype=port_matmul)
+    params = params_from_numpy(
+        model, with_port_hoisted(model, host_params(jsim.params)),
+        device="cpu", matmul_dtype=port_matmul)
+    if check_params:
+        assert_params_equal(model, params)
     pstep = make_step_fn(model, matmul_dtype=port_matmul, device="cpu")
     jstep = jax.jit(jsim._step_fn)
     tables = [np.asarray(c) for c in jsim._tabulate_inputs(n_steps)]
