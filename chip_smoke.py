@@ -25,11 +25,12 @@ result line):
 4. cluster sweep: the kernel's time per 10,000-step chunk for each C in
    turns (1, 4, 4, 1) at full width, at 32 neurons per oscillator (the
    per-step floor: exchange and barrier latency with almost no neuron
-   work) and at the first k = 62 and 63 oscillators of the 3-D ssp_dim 201
-   build of ``experiments/scaled_slam.py`` (800 LIF each), either side of
-   the edge where ``_cluster_size`` changes C, each first held to the
-   plain version over 40 steps; the card's clocks and power are sampled
-   over the sweep;
+   work), at the 3-D configurations of ``experiments/scaled_slam.py``
+   (ssp_dim 201 and 801 -> k = 101 and 401, 800 LIF each) and at the
+   first k oscillators of those builds for k on either side of the edges
+   that ``_cluster_size`` and the waves of resident clusters set, each
+   first held to the plain version over 40 steps; the card's clocks and
+   power are sampled over the sweep;
 5. main path: ``FastPathIntegrator`` driven with ``bench.py --model
    pi-fast``'s traffic (one 10,000-step warm-up chunk, then 50,000 timed
    steps) at the C the wrapper picks, with the card's clocks and power
@@ -48,8 +49,9 @@ result line):
    step over the first 2,000 steps (max-abs <= 1e-6), CUDA kernels per
    step from one ``torch.profiler`` pass over 20 eager steps (and the
    device's busy share over 20 replayed steps), steps/s for graphs of
-   U = 10 steps (50,000 timed steps) and for eager stepping (2,000), each
-   after one 10,000-step warm-up segment, and the decoded positions of the
+   U = 1, 10 and 100 steps (50,000 timed steps each) and for eager
+   stepping (2,000), each after one 10,000-step warm-up segment, every
+   U's trace equal to the first's, and the decoded positions of the
    Simulator's trace and the fast
    path's trace of phase 5 within 0.1 of each other at every 10,000-step
    boundary.  This path launches no hand-written kernel (the JAX engine
@@ -111,10 +113,13 @@ result line):
    phase 8's velocities: replay against eager over 1,000 steps (<= 1e-6)
    and the decoded error at the end (printed);
 18. ``run_slamview --T 20`` and ``run_slam --backend gated --T 20`` as
-   subprocesses (run as ``python -m`` does, through runpy, so the child
-   can report the VCO kernel's launches): exit 0 and finite errors
-   (printed, not gated).  The VCO kernel launches 0 times over phases
-   14-18, as the JAX package reaches no Pallas kernel on these paths.
+   subprocesses: exit 0 and finite errors (printed, not gated).  The VCO
+   kernel launches 0 times over phases 14-18, as the JAX package reaches
+   no Pallas kernel on these paths.
+
+Every CLI subprocess (phases 10, 13 and 18) runs its module as ``python
+-m`` does, through runpy, and then prints the VCO kernel's launches in
+that process, which must be 0.
 
 The last six lines of standard output are one JSON object of the
 Simulator's numbers, one of the SLAM numbers, one of phases 14-18
@@ -156,8 +161,7 @@ SHORT_TOL = 2e-4      # max-abs over 40 steps (tests/test_pallas.py bound)
 LONG_MEDIAN_TOL = 2e-3  # median |diff| over one 2,000- or 10,000-step chunk
 DRIFT_TOL = 0.1       # decoded-position difference, two kernels, whole run
 ACCURACY_TOL = 0.25   # decode error after 800 steps at constant velocity
-GRAPH_UNITS = (10,)   # steps per captured CUDA graph (1, 10 and 100 timed
-                      # within the spread between calls; 10 is the default)
+GRAPH_UNITS = (1, 10, 100)  # steps per captured CUDA graph, timed in turn
 EAGER_TIMED = 2_000   # eager steps timed on PI (after one warm-up segment)
 REPLAY_TOL = 1e-6     # graph replay vs eager step, max-abs over LONG steps
 PROFILE_STEPS = 20    # the counts per step read the same as over 100 steps
@@ -174,14 +178,19 @@ SWEEP_REPEATS = 3
 TIME_REPEATS = 5
 # The sweep's widths: (name, domain dim, ssp_dim, neurons per oscillator,
 # oscillators).  None takes the build's own k; a number takes the first k
-# oscillators of the build: one point on either side of k = 62, where the
-# wrapper's choice of C changes on 132 SMs.  (PERF.md keeps the readings of
-# the whole 3-D builds and of the edges of the waves of resident clusters.)
+# oscillators of the build: on either side of k = 62, where the wrapper's
+# choice of C changes on 132 SMs, and of where a wave of resident clusters
+# ends; and one point at which that choice is not the faster (PERF.md).
 SWEEP_WIDTHS = (
     ("full width", 2, SSP_DIM, N_NEURONS, None),
     ("floor", 2, SSP_DIM, FLOOR_NEURONS, None),
     ("3-D ssp_dim 201, first 62", 3, 201, N_NEURONS, 62),
     ("3-D ssp_dim 201, first 63", 3, 201, N_NEURONS, 63),
+    ("3-D ssp_dim 201, n = 400, first 66", 3, 201, 400, 66),
+    ("3-D ssp_dim 201", 3, 201, N_NEURONS, None),
+    ("3-D ssp_dim 801", 3, 801, N_NEURONS, None),
+    *((f"3-D ssp_dim 801, first {k}", 3, 801, N_NEURONS, k)
+      for k in (124, 125, 132, 133, 264, 265)),
 )
 
 # The card's published peaks (NVIDIA H100 SXM data sheet, 700 W): float32
@@ -845,31 +854,30 @@ print(f"vco_scan launches: {vco_scan.vco_scan.launches}")
 """
 
 
-def run_cli(name, *args, count_launches=False):
-    """Phases 10, 13 and 18: ``python -m sspslam_tpu_torch.experiments.<name>``
-    with ``args``, as a user runs it; it must exit 0 and print finite
-    errors.  With ``count_launches`` the module runs through runpy in a
-    child that then prints the VCO kernel's launches, which must be 0.
-    Returns (final error, median error, seconds)."""
-    module = f"sspslam_tpu_torch.experiments.{name}"
-    cmd = ([sys.executable, "-c", _COUNTED_CLI, module] if count_launches
-           else [sys.executable, "-m", module])
+def run_cli(name, *args):
+    """Phases 10, 13 and 18: ``sspslam_tpu_torch.experiments.<name>`` with
+    ``args``, run as ``python -m`` runs it, in a child that then prints the
+    VCO kernel's launches; it must exit 0, print finite errors and launch
+    the kernel 0 times (these CLIs step the Simulator).  Returns the final
+    and median errors, the seconds and the launches the child printed."""
     t0 = time.perf_counter()
     proc = subprocess.run(
-        [*cmd, *args], cwd=Path(__file__).resolve().parent,
-        capture_output=True, text=True, timeout=600)
+        [sys.executable, "-c", _COUNTED_CLI,
+         f"sspslam_tpu_torch.experiments.{name}", *args],
+        cwd=Path(__file__).resolve().parent, capture_output=True, text=True,
+        timeout=600)
     seconds = time.perf_counter() - t0
-    if count_launches and proc.returncode == 0:
-        line = next(l for l in proc.stdout.splitlines()
-                    if l.startswith("vco_scan launches:"))
-        if int(line.split()[-1]) != 0:
-            raise AssertionError(f"{name} launched vco_scan: {line}")
     for line in proc.stdout.splitlines():
         if not line.startswith("  sim "):
             log(f"  {name}: {line.strip()}")
     if proc.returncode != 0:
         raise AssertionError(f"{name} exited {proc.returncode}: "
                              f"{proc.stderr[-2000:]}")
+    line = next(l for l in proc.stdout.splitlines()
+                if l.startswith("vco_scan launches:"))
+    launches = int(line.split()[-1])
+    if launches != 0:
+        raise AssertionError(f"{name} launched vco_scan: {line}")
     line = next(l for l in proc.stdout.splitlines()
                 if l.startswith("final distance error"))
     final, median = (float(x) for x in
@@ -878,7 +886,8 @@ def run_cli(name, *args, count_launches=False):
         raise AssertionError(f"{name} printed {line!r}")
     log(f"{name}: exit 0 in {seconds:.1f} s; final error {final}, "
         f"median {median} (printed, not gated)")
-    return final, median, seconds
+    return {"final_error": final, "median_error": median,
+            "seconds": seconds, "vco_scan_launches": launches}
 
 
 def slam_world():
@@ -1482,27 +1491,19 @@ def main() -> int:
     simulator = simulator_path(space, vco, trace)
     simulator["semantics_vs_cpu"] = simulator_semantics()
     simulator["accuracy_error"] = simulator_accuracy(HexagonalSSPSpace)
-    final, median, seconds = run_cli("run_pathint")
-    simulator["run_pathint"] = {"final_error": final, "median_error": median,
-                                "seconds": seconds}
+    simulator["run_pathint"] = run_cli("run_pathint")
 
     # 11-13. SLAM
     slam = slam_path(space, vco)
-    final, median, seconds = run_cli("run_slam", "--T", "20")
-    slam["run_slam"] = {"final_error": final, "median_error": median,
-                        "seconds": seconds}
+    slam["run_slam"] = run_cli("run_slam", "--T", "20")
 
     # 14-18. the rest of the model family
     family = family_models(space, vco)
     family["cleanup"] = cleanup_methods(vco)
     family["pi_variants"] = pi_variants(space, vco)
-    for key, cli, args in (
-            ("run_slamview", "run_slamview", ("--T", "20")),
-            ("run_slam_gated", "run_slam", ("--backend", "gated", "--T",
-                                            "20"))):
-        final, median, seconds = run_cli(cli, *args, count_launches=True)
-        family[key] = {"final_error": final, "median_error": median,
-                       "seconds": seconds, "vco_scan_launches": 0}
+    family["run_slamview"] = run_cli("run_slamview", "--T", "20")
+    family["run_slam_gated"] = run_cli("run_slam", "--backend", "gated",
+                                       "--T", "20")
 
     ms = float(np.mean(full[chosen]))
     b_ms, b_by = bound_ms(fpi.n, fpi.k, fpi.d, fpi.N, CHUNK, spikes)
@@ -1532,7 +1533,10 @@ def main() -> int:
                         "pi-fast traffic)"],
         "launches_on_simulator_paths": {
             "pi (phase 8)": simulator["vco_scan_launches"],
+            "run_pathint (phase 10)":
+                simulator["run_pathint"]["vco_scan_launches"],
             "slam (phases 11-12)": slam["vco_scan_launches"],
+            "run_slam (phase 13)": slam["run_slam"]["vco_scan_launches"],
             "slam_gated (phase 14)": family["gated"]["vco_scan_launches"],
             "slam_view (phase 15)": family["view"]["vco_scan_launches"],
             "cleanup methods (phase 16)":

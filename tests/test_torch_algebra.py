@@ -233,7 +233,7 @@ def test_newton_core_per_row_matches_jax(dim, d):
     the same start."""
     js, ps = _pair(dim, d)
     mat, lo, hi = ps._newton_tables()
-    x, phi = _noisy_ssps(js, 8, seed=5)
+    x, phi = _noisy_ssps(js, 4, seed=5)
     u = phi / np.linalg.norm(phi, axis=1, keepdims=True)
     tgt = np.conj(np.fft.fft(u, axis=-1))
     x0 = (x + 0.05).astype(np.float32)

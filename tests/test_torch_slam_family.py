@@ -317,38 +317,48 @@ def test_slamview_adapter_matches_jax():
 CLI_ARGS = ["--T", "0.3", "--limit", "2", "--ssp-dim", "25",
             "--pi-n-neurons", "80", "--mem-n-neurons", "90",
             "--circonv-n-neurons", "30", "--n-landmarks", "5", "--save"]
-PORT = [sys.executable, "-m"]
+# name: (the port's module and flags, the JAX CLI's script and flags)
 CLIS = {
-    "slamview": ([*PORT, "sspslam_tpu_torch.experiments.run_slamview",
-                  "--device", "cpu"],
-                 [sys.executable, str(REPO / "experiments" /
-                                      "run_slamview.py"), "--backend", "cpu"]),
-    "slam-gated": ([*PORT, "sspslam_tpu_torch.experiments.run_slam",
-                    "--backend", "gated", "--device", "cpu"],
-                   [sys.executable, str(REPO / "experiments" /
-                                        "run_slam.py"), "--backend",
-                    "gated"]),
+    "slamview": (("run_slamview", "--device", "cpu"),
+                 ("run_slamview.py", "--backend", "cpu")),
+    "slam-gated": (("run_slam", "--backend", "gated", "--device", "cpu"),
+                   ("run_slam.py", "--backend", "gated")),
 }
 
 
 def test_clis_match_jax(tmp_path):
     """The port's run_slamview and run_slam --backend gated on the CPU
-    against the JAX CLIs, all four side by side (one thread each): the same
-    saved world, traces within the spike-flip bounds, the same lines."""
+    against the JAX CLIs: the JAX CLIs run as children (one thread each)
+    while the port's ``main`` runs in this process, as ``python -m`` calls
+    it; the same saved world, traces within the spike-flip bounds, the
+    same lines."""
+    import contextlib
+    import importlib
+    import io
     env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=str(REPO),
                SSPSLAM_CLEANUP_F32="1", OMP_NUM_THREADS="1")
     runs = {(name, side): tmp_path / f"{name}-{side}"
             for name in CLIS for side in ("port", "jax")}
-    procs = {key: subprocess.Popen(
-        CLIS[key[0]][key[1] == "jax"] + CLI_ARGS + ["--save-dir", str(out)],
+    procs = {name: subprocess.Popen(
+        [sys.executable, str(REPO / "experiments" / jax_cli[0]),
+         *jax_cli[1:], *CLI_ARGS, "--save-dir", str(runs[name, "jax"])],
         cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-        text=True) for key, out in runs.items()}
+        text=True) for name, (_, jax_cli) in CLIS.items()}
+    stdout = {}
+    for name, ((module, *flags), _) in CLIS.items():
+        cli = importlib.import_module(f"sspslam_tpu_torch.experiments."
+                                      f"{module}")
+        with contextlib.redirect_stdout(io.StringIO()) as out:
+            cli.main([*flags, *CLI_ARGS, "--save-dir",
+                      str(runs[name, "port"])])
+        stdout[name, "port"] = out.getvalue()
+    for name, proc in procs.items():
+        stdout[name, "jax"], stderr = proc.communicate(timeout=600)
+        assert proc.returncode == 0, (name, stderr[-3000:])
     res = {}
-    for key, proc in procs.items():
-        stdout, stderr = proc.communicate(timeout=600)
-        assert proc.returncode == 0, (key, stderr[-3000:])
-        (path,) = glob.glob(str(runs[key] / "*.npz"))
-        res[key] = (stdout, np.load(path, allow_pickle=True))
+    for key, run in runs.items():
+        (path,) = glob.glob(str(run / "*.npz"))
+        res[key] = (stdout[key], np.load(path, allow_pickle=True))
     for name in CLIS:
         (pout, port), (jout, ref) = res[name, "port"], res[name, "jax"]
         assert sorted(port.files) == sorted(ref.files)
