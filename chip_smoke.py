@@ -115,16 +115,37 @@ result line):
 18. ``run_slamview --T 20`` and ``run_slam --backend gated --T 20`` as
    subprocesses: exit 0 and finite errors (printed, not gated).  The VCO
    kernel launches 0 times over phases 14-18, as the JAX package reaches
-   no Pallas kernel on these paths.
+   no Pallas kernel on these paths;
+19. quantised storage: phase 11's SLAMNetwork and traffic with
+   ``matmul_dtype="int8"`` and again ``"fp8"``: graph replay against eager
+   over 2,000 steps (<= 1e-6), kernels per replayed step, the tracking
+   cosine over the world (int8 at most 0.05 below float32's, see
+   ``QUANT_TRACKING_BAND``), steps/s over 10,000 timed steps and the bytes
+   of the parameter tree, each beside phase 11's float32 numbers;
+20. batched episodes: phase 11's float32 model, B = 1, 8 and 32 episodes
+   of the bench world (episode b's landmarks from seed b) through
+   ``parallel.BatchedEpisodes``: aggregate steps/s over 20,000 timed steps
+   after a warm-up segment, kernels per replayed batched step (at most
+   1.2 x B = 1's: the batch did not loop), peak device memory; at B = 8 the
+   batched replay against its eager step over 1,000 steps (<= 1e-6), and
+   each episode against a plain Simulator run of it over 2,000 steps (see
+   ``batched_episodes``);
+21. the reference's second bar: ``python -m
+   sspslam_tpu_torch.experiments.scaled_slam --T 40 --seeds 0,1
+   --param-dtype int8 --no-pi-control`` (ssp_dim 201 in 3-D, 101 VCOs x 800
+   LIF, memory 10,000, 100 landmarks, 2 batched episodes) as a subprocess:
+   exit 0 and median_err_slam <= 0.4; then its ``--dp-sweep 1,2,8`` at
+   T = 10, one row per B.  The VCO kernel launches 0 times over phases
+   19-21.
 
-Every CLI subprocess (phases 10, 13 and 18) runs its module as ``python
--m`` does, through runpy, and then prints the VCO kernel's launches in
-that process, which must be 0.
+Every CLI subprocess (phases 10, 13, 18 and 21) runs its module as
+``python -m`` does, through runpy, and then prints the VCO kernel's
+launches in that process, which must be 0.
 
-The last six lines of standard output are one JSON object of the
+The last seven lines of standard output are one JSON object of the
 Simulator's numbers, one of the SLAM numbers, one of phases 14-18
-(``family``), the card's name and power limit, one JSON object describing
-the kernel, and the result line.
+(``family``), one of phases 19-21 (``scaled``), the card's name and power
+limit, one JSON object describing the kernel, and the result line.
 
 To compare the kernel of two checkouts on one card, time each in turns
 within one command (the other commit unpacked into a git-ignored
@@ -163,6 +184,11 @@ DRIFT_TOL = 0.1       # decoded-position difference, two kernels, whole run
 ACCURACY_TOL = 0.25   # decode error after 800 steps at constant velocity
 GRAPH_UNITS = (1, 10, 100)  # steps per captured CUDA graph, timed in turn
 EAGER_TIMED = 2_000   # eager steps timed on PI (after one warm-up segment)
+EAGER_WARM = 1_000    # the eager timing's warm-up segment (no capture)
+# timed steps of the SLAM-family Simulator paths (phases 11, 14, 15), after
+# one CHUNK-step warm-up segment: 20,000 read the same steps/s as 50,000
+# within their spread (PERF.md) and leave the smoke room for phases 19-21
+SIM_TIMED = 20_000
 REPLAY_TOL = 1e-6     # graph replay vs eager step, max-abs over LONG steps
 PROFILE_STEPS = 20    # the counts per step read the same as over 100 steps
 # bench.py --model slam: the 14 s world, 10 landmarks, view radius 0.8; the
@@ -613,14 +639,14 @@ def pi_simulator(space, vels, scaling_factor=1.0, corrections=None,
     return Simulator(net, seed=seed, device="cuda"), probe
 
 
-def timed_run(sim, probe, steps=TIMED):
-    """One CHUNK-step warm-up segment (graph capture included), then
+def timed_run(sim, probe, steps=TIMED, warm=CHUNK):
+    """One ``warm``-step warm-up segment (graph capture included), then
     ``steps`` timed steps in CHUNK-step segments; returns (steps/s, the
     whole trace, the card's clocks and power just before and just after
     the timed window)."""
     sim.reset()
-    sim.preload_inputs(CHUNK + steps)
-    sim.run_steps(CHUNK, segment_steps=CHUNK)
+    sim.preload_inputs(warm + steps)
+    sim.run_steps(warm, segment_steps=warm)
     sim.sync()
     before = nvidia_smi(ClockSampler.QUERY)
     t0 = time.perf_counter()
@@ -706,7 +732,7 @@ def simulator_path(space, vco, fast_trace):
     best = max(rates, key=rates.get)
     sim._graph_steps = best
     sim._eager = True
-    eager_rate, _, _ = timed_run(sim, probe, EAGER_TIMED)
+    eager_rate, _, _ = timed_run(sim, probe, EAGER_TIMED, EAGER_WARM)
     sim._eager = False
     log(f"Simulator, eager: {eager_rate:.0f} steps/s over {EAGER_TIMED} "
         f"steps; "
@@ -854,22 +880,22 @@ print(f"vco_scan launches: {vco_scan.vco_scan.launches}")
 """
 
 
-def run_cli(name, *args):
-    """Phases 10, 13 and 18: ``sspslam_tpu_torch.experiments.<name>`` with
-    ``args``, run as ``python -m`` runs it, in a child that then prints the
-    VCO kernel's launches; it must exit 0, print finite errors and launch
-    the kernel 0 times (these CLIs step the Simulator).  Returns the final
-    and median errors, the seconds and the launches the child printed."""
+def run_counted(name, *args, timeout=600):
+    """``sspslam_tpu_torch.experiments.<name>`` with ``args``, run as
+    ``python -m`` runs it, in a child that then prints the VCO kernel's
+    launches; it must exit 0 and launch the kernel 0 times (these CLIs step
+    the Simulator or batched episodes).  Logs the child's lines; returns
+    its standard output, the seconds and the launches."""
     t0 = time.perf_counter()
     proc = subprocess.run(
         [sys.executable, "-c", _COUNTED_CLI,
          f"sspslam_tpu_torch.experiments.{name}", *args],
         cwd=Path(__file__).resolve().parent, capture_output=True, text=True,
-        timeout=600)
+        timeout=timeout)
     seconds = time.perf_counter() - t0
     for line in proc.stdout.splitlines():
         if not line.startswith("  sim "):
-            log(f"  {name}: {line.strip()}")
+            log(f"  {name}: {line.strip()[:400]}")
     if proc.returncode != 0:
         raise AssertionError(f"{name} exited {proc.returncode}: "
                              f"{proc.stderr[-2000:]}")
@@ -878,7 +904,15 @@ def run_cli(name, *args):
     launches = int(line.split()[-1])
     if launches != 0:
         raise AssertionError(f"{name} launched vco_scan: {line}")
-    line = next(l for l in proc.stdout.splitlines()
+    return proc.stdout, seconds, launches
+
+
+def run_cli(name, *args):
+    """Phases 10, 13 and 18: run_counted, and the child must print finite
+    errors.  Returns the final and median errors, the seconds and the
+    launches the child printed."""
+    stdout, seconds, launches = run_counted(name, *args)
+    line = next(l for l in stdout.splitlines()
                 if l.startswith("final distance error"))
     final, median = (float(x) for x in
                      line.replace(";", "").split()[3::2])
@@ -904,26 +938,38 @@ def slam_world():
     return path, vels, landmarks, landmarks[None, :, :] - path[:, None, :]
 
 
+def slam_inputs(space, lm_space, world):
+    """bench.py --model slam's input tables for ``world`` through the
+    single-nearest adapter, in the order slam_simulator connects them:
+    velocities, the initial clamp, landmark SP, landmark vector SSP,
+    in-view flag; and the velocity scale."""
+    from sspslam_tpu_torch.models import get_slam_input_functions
+    from sspslam_tpu_torch.nef import clamp_table
+    path, vels, landmarks, vec = world
+    (vel_f, scale, in_view_f, _, sp_f, _, vecssp_f) = \
+        get_slam_input_functions(space, lm_space, vels, vec, VIEW_RAD)
+    return [vel_f, clamp_table(space.encode(path[:1]).ravel(), 0.05), sp_f,
+            vecssp_f, in_view_f], scale
+
+
 def slam_simulator(space, world, gate_mode="reference", anchor=False,
-                   clean_up_method="grid"):
+                   clean_up_method="grid", matmul_dtype=None):
     """bench.py --model slam's network on the port: SLAMNetwork at full
     width (800 LIF per VCO, memory 970, 100 neurons per circular-convolution
     dimension, clean-up over 100 x 100 samples in bf16) fed by the
     single-nearest adapter, the PI output probed through a 50 ms lowpass.
     With ``anchor`` the auto-recovery gate reads the first ANCHORS
     landmarks as surveyed beacons; ``clean_up_method`` picks the clean-up
-    (the MLP ones read ``space.decoder_params``).  Returns (simulator,
-    probe, build s)."""
+    (the MLP ones read ``space.decoder_params``); ``matmul_dtype`` the
+    parameter storage.  Returns (simulator, probe, build s)."""
     from sspslam_tpu_torch import SPSpace
     from sspslam_tpu_torch.models import (SLAMNetwork,
-                                          get_anchor_input_functions,
-                                          get_slam_input_functions)
+                                          get_anchor_input_functions)
     from sspslam_tpu_torch.nef import (Connection, Network, Node, Probe,
-                                       Simulator, clamp_table)
+                                       Simulator)
     path, vels, landmarks, vec = world
     lm_space = SPSpace(SLAM_LANDMARKS, space.ssp_dim, seed=SEED)
-    (vel_f, scale, in_view_f, _, sp_f, _, vecssp_f) = \
-        get_slam_input_functions(space, lm_space, vels, vec, VIEW_RAD)
+    fns, scale = slam_inputs(space, lm_space, world)
     with Network(seed=SEED) as net:
         slam = SLAMNetwork(space, lm_space, VIEW_RAD, SLAM_LANDMARKS,
                            pi_n_neurons=N_NEURONS, mem_n_neurons=970,
@@ -931,12 +977,11 @@ def slam_simulator(space, world, gate_mode="reference", anchor=False,
                            cleanup_samples_per_dim=100, seed=SEED,
                            gate_mode=gate_mode, anchor=anchor,
                            clean_up_method=clean_up_method)
-        for f, dst in ((vel_f, slam.velocity_input),
-                       (clamp_table(space.encode(path[:1]).ravel(), 0.05),
-                        slam.pathintegrator.input),
-                       (sp_f, slam.landmark_id_input),
-                       (vecssp_f, slam.landmark_vec_ssp),
-                       (in_view_f, slam.no_landmark_in_view)):
+        for f, dst in zip(fns, (slam.velocity_input,
+                                slam.pathintegrator.input,
+                                slam.landmark_id_input,
+                                slam.landmark_vec_ssp,
+                                slam.no_landmark_in_view)):
             Connection(Node(f), dst, synapse=None)
         if anchor:
             tables = get_anchor_input_functions(
@@ -948,7 +993,7 @@ def slam_simulator(space, world, gate_mode="reference", anchor=False,
                 Connection(Node(f), dst, synapse=None)
         probe = Probe(slam.pathintegrator.output, synapse=0.05)
     t0 = time.perf_counter()
-    sim = Simulator(net, seed=SEED, device="cuda")
+    sim = Simulator(net, seed=SEED, device="cuda", matmul_dtype=matmul_dtype)
     return sim, probe, time.perf_counter() - t0
 
 
@@ -1081,15 +1126,17 @@ def slam_path(space, vco):
     out["shift_rate_in_place_moved"], out["shift_rate_replay_vs_eager"] = \
         hoisted_threshold(sim, probe)
 
-    # (d) steps/s, bench.py's timing: one warm-up segment, then TIMED steps
-    rate, timed, window = timed_run(sim, probe)
-    log(f"SLAM: {rate:.0f} steps/s over {TIMED} steps (graphs of "
+    # (d) steps/s, bench.py's timing: one warm-up segment, then SIM_TIMED
+    # steps
+    rate, timed, window = timed_run(sim, probe, SIM_TIMED)
+    log(f"SLAM: {rate:.0f} steps/s over {SIM_TIMED} steps (graphs of "
         f"{sim._graph_steps} steps); window ({ClockSampler.QUERY}): just "
         f"before {window[0]}; just after {window[1]}")
     if not np.all(np.isfinite(timed)):
         raise AssertionError("SLAM timed run is not finite")
     out["steps_per_s"] = rate
     out["timed_window_nvidia_smi"] = window
+    out["param_bytes"] = param_bytes(sim.params)[0]
     del sim
 
     # 12. the auto-recovery gate with anchors: the stateful node and the
@@ -1136,7 +1183,7 @@ def profile_line(what, sim):
             "device_busy_share_graph": share_graph, "top_kernels_graph": top}
 
 
-def full_checks(what, sim, probe, space, path, build_s, steps=TIMED):
+def full_checks(what, sim, probe, space, path, build_s, steps=SIM_TIMED):
     """Phases 14 and 15 (and 16's direct-optim): the neuron count and build
     time; graph replay against eager over LONG steps; kernels per step;
     the tracking cosine over one run of the world (printed, finite, not
@@ -1278,7 +1325,7 @@ def family_models(space, vco):
 
 
 DECODE_POINTS = 1_000
-CLEANUP_TIMED = 20_000   # direct-optim's timed steps (one warm-up segment)
+CLEANUP_TIMED = 10_000   # direct-optim's timed steps (one warm-up segment)
 
 
 def cleanup_methods(vco):
@@ -1401,6 +1448,341 @@ def pi_variants(space, vco):
     return out
 
 
+QUANT_TIMED = 10_000     # timed steps of each quantised SLAM (phase 19)
+# int8 storage may cost the bench world's tracking cosine at most this
+# much against float32's (phase 11): on the card the cosine of one world
+# moves by up to 0.04 between runs that differ only in rounding (the
+# batched and the plain step, bf16 against float32 activations; PERF.md
+# §6), so bench.py's absolute 0.93 is printed for int8, not gated
+QUANT_TRACKING_BAND = 0.05
+BATCHES = (1, 8, 32)     # episodes per batch (phase 20)
+BATCH_TIMED = 20_000     # timed batched steps
+BATCH_SEG = 2_000        # batched segment length: warm-up, then timed
+BATCH_REPLAY = 1_000     # batched replay vs eager steps
+BATCH_EPISODE_STEPS = 2_000   # each episode against a plain Simulator run
+BATCH_EPISODE_FULL = 300      # ... the whole spike-flip bounds over these
+BATCH_CHECKED = 8        # the batch whose episodes are checked
+KERNEL_GROWTH = 1.2      # kernels per batched step <= 1.2 x B = 1's
+# tests/torch_parity.py's spike-flip bounds (the tests import JAX, so the
+# script carries its own copy): per-step max-abs over the probe, relative
+# to max(|reference|, 1): median < atol, q80 < 5 atol, peak < 0.25, under
+# 10 % of steps above 5 atol, the longest such run at most max(5, 3 %)
+SPIKE_ATOL = 1e-3
+# scaled_slam (bench.py:428-469): the view radius bounds the median error
+SCALED_GATE = 0.4
+
+
+def param_bytes(params):
+    """Bytes of a parameter tree's tensors (a QTensor's payload and
+    scales), and the bytes of the 1-byte payloads among them."""
+    from sspslam_tpu_torch.nef.simulator import _flatten
+    leaves = _flatten(params)
+    total = sum(x.numel() * x.element_size() for x in leaves)
+    one_byte = sum(x.numel() for x in leaves if x.element_size() == 1)
+    return total, one_byte
+
+
+def spike_flip_stats(got, want):
+    """Per-step max-abs of ``got`` vs ``want`` (steps, ...) relative to
+    max(|want|, 1): its median, q80 and peak, the share of steps above
+    5 SPIKE_ATOL, the longest run of such steps, and the first step that
+    differs at all."""
+    got = np.asarray(got, np.float64)
+    want = np.asarray(want, np.float64)
+    if got.shape != want.shape:
+        raise AssertionError(f"shapes {got.shape} and {want.shape}")
+    per_t = np.max(np.abs(got - want).reshape(len(got), -1), axis=1)
+    per_t = per_t / max(float(np.max(np.abs(want))), 1.0)
+    exc = per_t > 5 * SPIKE_ATOL
+    run = longest = 0
+    for e in exc:
+        run = run + 1 if e else 0
+        longest = max(longest, run)
+    nonzero = np.flatnonzero(per_t > 0)
+    return {"median": float(np.median(per_t)),
+            "q80": float(np.quantile(per_t, 0.8)), "peak": float(per_t.max()),
+            "above_5_atol": float(np.mean(exc)), "longest_run": longest,
+            "first_differing_step": int(nonzero[0]) if nonzero.size else None,
+            "steps": len(per_t)}
+
+
+def spike_flip_check(got, want, what, whole=True):
+    """``got`` vs ``want`` within the spike-flip bounds (``whole=False``:
+    the q80 and peak bounds only); returns spike_flip_stats."""
+    st = spike_flip_stats(got, want)
+    ok = st["q80"] < 5 * SPIKE_ATOL and st["peak"] < 0.25
+    if whole:
+        ok = ok and (st["median"] < SPIKE_ATOL and st["above_5_atol"] < 0.10
+                     and st["longest_run"] <= max(5, int(0.03 * st["steps"])))
+    if not ok:
+        raise AssertionError(f"{what}: outside the spike-flip bounds: {st}")
+    return st
+
+
+def quantised_slam(space, vco, f32):
+    """Phase 19: SLAMNetwork at phase 11's width and traffic with int8 and
+    fp8 parameter storage: graph replay against eager (<= 1e-6), kernels
+    per replayed step, the tracking cosine over the world (int8 at most
+    QUANT_TRACKING_BAND below float32's, and printed against bench.py's
+    0.93; fp8 printed), steps/s over QUANT_TIMED steps and the bytes of
+    the parameter tree, each beside phase 11's float32 numbers (``f32``);
+    the VCO kernel launches 0 times."""
+    world = slam_world()
+    vco.vco_scan.launches = 0
+    out = {}
+    for kind in ("int8", "fp8"):
+        what = f"SLAM {kind}"
+        sim, probe, build_s = slam_simulator(space, world,
+                                             matmul_dtype=kind)
+        total, one_byte = param_bytes(sim.params)
+        r = {"build_s": build_s, "param_bytes": total,
+             "param_bytes_one_byte_payloads": one_byte}
+        log(f"{what} build: {build_s:.1f} s; parameter tree {total:,} bytes "
+            f"({one_byte:,} in 1-byte payloads) against float32's "
+            f"{f32['param_bytes']:,}")
+        r["graph_vs_eager_max_abs"], r["steps_per_s_eager"] = \
+            replay_vs_eager(sim, probe, what)
+        k_graph, _, busy, share, top = profile_steps(sim, False)
+        log(f"{what}: graph replay {k_graph:.2f} kernels per step (float32 "
+            f"{f32['kernels_per_step_graph']:.2f}), busy {busy:.1f} us per "
+            f"step = {share * 100:.1f} %")
+        for name, us, calls in top:
+            log(f"  {what} graph replay, per step: {us:6.2f} us in "
+                f"{calls:.2f} x {name}")
+        r.update(kernels_per_step_graph=k_graph,
+                 device_busy_us_per_step_graph=busy, top_kernels_graph=top)
+        sim.reset()
+        sim.run_steps(WORLD_STEPS)
+        trace = sim.data[probe]
+        cos = tracking_cosine(space, trace, world[0])
+        floor = f32["tracking_cosine"] - QUANT_TRACKING_BAND
+        gated = kind == "int8"
+        log(f"{what} tracking cosine (last quarter of the {WORLD_STEPS}-step "
+            f"world): {cos:.4f} (float32 {f32['tracking_cosine']:.4f}; "
+            f"bench.py's {TRACKING_GATE}: "
+            f"{'met' if cos >= TRACKING_GATE else 'not met'}; "
+            + (f"gate >= float32 - {QUANT_TRACKING_BAND} = {floor:.4f})"
+               if gated else "printed)"))
+        if not (np.all(np.isfinite(trace)) and np.isfinite(cos)
+                and (cos >= floor or not gated)):
+            raise AssertionError(f"{what}: tracking cosine {cos} < {floor}")
+        r["tracking_cosine"] = cos
+        rate, timed, window = timed_run(sim, probe, QUANT_TIMED)
+        log(f"{what}: {rate:.0f} steps/s over {QUANT_TIMED} steps (float32 "
+            f"{f32['steps_per_s']:.0f}); window ({ClockSampler.QUERY}): "
+            f"just before {window[0]}; just after {window[1]}")
+        if not np.all(np.isfinite(timed)):
+            raise AssertionError(f"{what}: the timed run is not finite")
+        r["steps_per_s"] = rate
+        r["timed_window_nvidia_smi"] = window
+        out[kind] = r
+        del sim
+    out["vco_scan_launches"] = vco.vco_scan.launches
+    if out["vco_scan_launches"] != 0:
+        raise AssertionError("the quantised SLAM paths launched vco_scan")
+    return out
+
+
+def episode_tables(sim, space, B):
+    """(T, B, size) input tables, in ``sim.model.input_nodes`` order, of B
+    episodes of bench.py --model slam's world: the same path, and episode
+    b's SLAM_LANDMARKS landmarks drawn from seed SEED + b (episode 0 is
+    the bench world)."""
+    from sspslam_tpu_torch import SPSpace
+    lm_space = SPSpace(SLAM_LANDMARKS, space.ssp_dim, seed=SEED)
+    path, vels, _, _ = slam_world()
+    nodes = sim.model.input_nodes
+    built = [n.output for n in nodes]
+    if len(nodes) != 5:
+        raise AssertionError(f"{len(nodes)} tabulated inputs, not 5")
+    per = []
+    for b in range(B):
+        lms = np.random.default_rng(SEED + b).uniform(
+            -0.7, 0.7, size=(SLAM_LANDMARKS, 2))
+        fns, _ = slam_inputs(space, lm_space,
+                             (path, vels, lms, lms[None] - path[:, None]))
+        # the nodes are created in slam_inputs' order, and are the
+        # model's only tabulated inputs
+        for n, f in zip(nodes, fns):
+            n.output = f
+        try:
+            per.append(sim._tabulate_inputs(WORLD_STEPS))
+        finally:
+            for n, f in zip(nodes, built):
+                n.output = f
+    return [torch.as_tensor(np.stack([p[i] for p in per], axis=1),
+                            dtype=torch.float32) for i in range(len(nodes))]
+
+
+def batched_profile(runner):
+    """Kernels and device busy us per replayed batched step over
+    PROFILE_STEPS steps (one profiler pass, graphs already captured)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    runner.run(PROFILE_STEPS)
+    runner.sync()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        runner.run(PROFILE_STEPS)
+        runner.sync()
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    kernels = [e for e in dev if not e.name.startswith(("Memcpy", "Memset"))]
+    return (len(kernels) / PROFILE_STEPS,
+            sum(e.time_range.elapsed_us() for e in dev) / PROFILE_STEPS)
+
+
+def batched_episodes(space, vco):
+    """Phase 20: B = 1, 8 and 32 episodes of phase 11's float32 SLAM
+    through parallel.BatchedEpisodes (the step under torch.func.vmap,
+    graphs of GRAPH_STEPS batched steps): aggregate steps/s over
+    BATCH_TIMED steps after one BATCH_SEG-step warm-up segment, kernels per
+    replayed batched step (<= KERNEL_GROWTH x B = 1's: the batch did not
+    loop), the peak device memory; at B = BATCH_CHECKED the batched replay
+    against its eager step (<= 1e-6) and every episode against a plain
+    Simulator run of the same episode: the whole spike-flip bounds over the
+    first BATCH_EPISODE_FULL steps, their q80 and peak over
+    BATCH_EPISODE_STEPS, and the median printed beside the same statistic
+    between two batched runs of one episode (B = 1 and B = BATCH_CHECKED),
+    which differ only in the shape of their matrix products."""
+    from sspslam_tpu_torch.parallel import BatchedEpisodes
+    vco.vco_scan.launches = 0
+    sim, probe, build_s = slam_simulator(space, slam_world())
+    pi = next(bp.index for bp in sim.model.probes if bp.obj is probe)
+    log(f"SLAM for batched episodes: build {build_s:.1f} s")
+    tables = episode_tables(sim, space, max(BATCHES))
+    out = {"build_s": build_s}
+    for B in BATCHES:
+        torch.cuda.reset_peak_memory_stats()
+        runner = BatchedEpisodes(sim, [t[:, :B] for t in tables])
+        t0 = time.perf_counter()
+        runner.run(BATCH_SEG)
+        runner.sync()
+        warm = time.perf_counter() - t0
+        before = nvidia_smi(ClockSampler.QUERY)
+        t0 = time.perf_counter()
+        for _ in range(BATCH_TIMED // BATCH_SEG):
+            bufs = runner.run(BATCH_SEG)
+        runner.sync()
+        rate = B * BATCH_TIMED / (time.perf_counter() - t0)
+        after = nvidia_smi(ClockSampler.QUERY)
+        if not torch.isfinite(bufs[pi]).all():
+            raise AssertionError(f"B = {B}: the batched run is not finite")
+        kernels, busy = batched_profile(runner)
+        peak = torch.cuda.max_memory_allocated()
+        out[str(B)] = {"agg_steps_per_s": rate, "kernels_per_step": kernels,
+                       "device_busy_us_per_step": busy,
+                       "max_memory_allocated": peak, "warm_up_s": warm,
+                       "timed_window_nvidia_smi": [before, after]}
+        log(f"batched SLAM, B = {B}: {rate:.0f} aggregate steps/s over "
+            f"{BATCH_TIMED} steps ({rate / B:.0f} a episode; warm-up segment "
+            f"with capture {warm:.1f} s); {kernels:.2f} kernels, busy "
+            f"{busy:.1f} us per replayed batched step; peak memory "
+            f"{peak / 2**20:.0f} MiB; window: just before {before}; just "
+            f"after {after}")
+        del runner, bufs
+    k1 = out["1"]["kernels_per_step"]
+    for B in BATCHES[1:]:
+        if not out[str(B)]["kernels_per_step"] <= KERNEL_GROWTH * k1:
+            raise AssertionError(
+                f"B = {B}: {out[str(B)]['kernels_per_step']} kernels per "
+                f"batched step against B = 1's {k1}: the batch loops")
+
+    def batched(B, steps, eager=False):
+        runner = BatchedEpisodes(sim, [t[:, :B] for t in tables])
+        runner.eager = eager
+        return runner.run(steps)[pi].cpu().numpy()
+
+    # replay vs eager of the batched step
+    B = BATCH_CHECKED
+    replay = batched(B, BATCH_REPLAY)
+    err = float(np.abs(replay - batched(B, BATCH_REPLAY, eager=True)).max())
+    log(f"batched SLAM, B = {B}: graph replay vs eager, {BATCH_REPLAY} "
+        f"steps: max-abs {err:.3e} (tol {REPLAY_TOL})")
+    if not (np.all(np.isfinite(replay)) and err <= REPLAY_TOL):
+        raise AssertionError(f"batched replay differs from eager: {err}")
+    out["graph_vs_eager_max_abs"] = err
+
+    # each episode against a plain Simulator run of the same episode
+    trace = batched(B, BATCH_EPISODE_STEPS)
+    control = spike_flip_stats(trace[:, 0],
+                               batched(1, BATCH_EPISODE_STEPS)[:, 0])
+    log(f"batched SLAM, episode 0 at B = 1 vs at B = {B} over "
+        f"{BATCH_EPISODE_STEPS} steps: {control}")
+    out["episode_0_b1_vs_b8"] = control
+    flips = []
+    for b in range(B):
+        sim.reset()
+        sim._preloaded = np.concatenate(
+            [t[:, b].numpy() for t in tables], axis=1)
+        sim._preloaded_dev = torch.as_tensor(sim._preloaded).to(sim.device)
+        sim._preload_start = 0
+        sim.run_steps(BATCH_EPISODE_STEPS, segment_steps=BATCH_EPISODE_STEPS)
+        plain = sim.data[probe]
+        n = BATCH_EPISODE_FULL
+        spike_flip_check(trace[:n, b], plain[:n],
+                         f"batched episode {b}, first {n} steps")
+        flips.append(spike_flip_check(trace[:, b], plain,
+                                      f"batched episode {b}", whole=False))
+        log(f"batched SLAM, B = {B}, episode {b} vs its plain run: within the "
+            f"spike-flip bounds over the first {n} steps; over "
+            f"{BATCH_EPISODE_STEPS}: {flips[-1]}")
+    out["episodes_vs_plain"] = flips
+    del sim
+    out["vco_scan_launches"] = vco.vco_scan.launches
+    if out["vco_scan_launches"] != 0:
+        raise AssertionError("the batched episodes launched vco_scan")
+    return out
+
+
+SCALED_ARGS = ("--T", "40", "--seeds", "0,1", "--param-dtype", "int8",
+               "--no-pi-control", "--table-cache", "")
+SWEEP_ARGS = ("--T", "10", "--seeds", "0", "--no-pi-control",
+              "--table-cache", "", "--dp-sweep", "1,2,8")
+
+
+def last_json(stdout):
+    """The last line of a CLI's output that is its result object."""
+    return json.loads(next(line for line in reversed(stdout.splitlines())
+                           if line.startswith('{"metric"')))
+
+
+def scaled_slam():
+    """Phase 21: the reference's second bar, ``scaled_slam --T 40 --seeds
+    0,1 --param-dtype int8 --no-pi-control`` (ssp_dim 201 in 3-D, 101
+    VCOs x 800 LIF, memory 10,000, 100 landmarks, 2 batched episodes), as
+    a counted child: exit 0, median_err_slam <= SCALED_GATE; then its
+    --dp-sweep 1,2,8 at T = 10 (one row per B)."""
+    stdout, seconds, launches = run_counted("scaled_slam", *SCALED_ARGS,
+                                            timeout=900)
+    res = last_json(stdout)
+    med = res["median_err_slam"]
+    log(f"scaled_slam int8: exit 0 in {seconds:.1f} s; median_err_slam "
+        f"{med} (gate <= {SCALED_GATE}); {res['agg_steps_per_s']} aggregate "
+        f"steps/s; build {res['build_s']} s; peak memory "
+        f"{res['max_memory_allocated'] / 2**20:.0f} MiB")
+    if not (np.isfinite(med) and med <= SCALED_GATE):
+        raise AssertionError(f"scaled_slam median_err_slam {med} > "
+                             f"{SCALED_GATE}")
+    out = {"median_err_slam": med, "per_seed": res["per_seed"],
+           "agg_steps_per_s": res["agg_steps_per_s"], "mfu": res["mfu"],
+           "build_s": res["build_s"],
+           "max_memory_allocated": res["max_memory_allocated"],
+           "seconds": seconds, "vco_scan_launches": launches}
+    stdout, seconds, launches = run_counted("scaled_slam", *SWEEP_ARGS,
+                                            timeout=900)
+    rows = last_json(stdout)["dp_sweep"]
+    if [r["B"] for r in rows] != [1, 2, 8] or not all(
+            r["agg_steps_per_s"] > 0 for r in rows):
+        raise AssertionError(f"scaled_slam --dp-sweep printed {rows}")
+    log(f"scaled_slam --dp-sweep 1,2,8: exit 0 in {seconds:.1f} s; "
+        + "; ".join(f"B = {r['B']}: {r['agg_steps_per_s']} aggregate steps/s"
+                    for r in rows))
+    out["dp_sweep"] = rows
+    out["dp_sweep_seconds"] = seconds
+    out["dp_sweep_vco_scan_launches"] = launches
+    return out
+
+
 def time_checkout(root: str) -> None:
     """``--time ROOT``: ms per CHUNK-step chunk of the ``vco_scan`` of the
     checkout at ``root``, at the cluster size it picks, on the main path's
@@ -1505,6 +1887,11 @@ def main() -> int:
     family["run_slam_gated"] = run_cli("run_slam", "--backend", "gated",
                                        "--T", "20")
 
+    # 19-21. quantised storage, batched episodes, the scaled CLI
+    scaled = {"quantised": quantised_slam(space, vco, slam),
+              "batched": batched_episodes(space, vco),
+              "scaled_slam": scaled_slam()}
+
     ms = float(np.mean(full[chosen]))
     b_ms, b_by = bound_ms(fpi.n, fpi.k, fpi.d, fpi.N, CHUNK, spikes)
     log(f"bound per {CHUNK}-step chunk ({spikes} spikes): {b_ms:.4f} ms "
@@ -1513,6 +1900,7 @@ def main() -> int:
     print(json.dumps({"simulator": simulator}), flush=True)
     print(json.dumps({"slam": slam}), flush=True)
     print(json.dumps({"family": family}), flush=True)
+    print(json.dumps({"scaled": scaled}), flush=True)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"kernels": [{
         "name": "vco_scan", "route": "cuda",

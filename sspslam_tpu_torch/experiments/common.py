@@ -2,7 +2,7 @@
 space, decoding and npz saving.
 
 A copy of the parts of the JAX package's ``experiments/common.py`` that
-``run_pathint`` and ``run_slam`` use (that module imports the JAX package).
+the port's CLIs use (that module imports the JAX package).
 ``--device`` (default ``cuda``) replaces ``--backend``.
 """
 
@@ -108,6 +108,22 @@ def decode_output(ssp_space, data, domain_dim, grid=None,
     (from-set), the similarity matmul on ``device``."""
     grid = grid if grid is not None else (100 if domain_dim < 3 else 30)
     return ssp_space.decode(data, method, "grid", grid, device=device)
+
+
+def kernel_value(space, r, M=200, seed=0):
+    """Mean SSP similarity K(r) = cos(phi(x), phi(x + r u)) over random
+    points and directions: the space's own distance -> similarity map,
+    from which the gate thresholds are derived (trigger = K(view_rad))."""
+    rng = np.random.default_rng(seed)
+    dim = space.domain_dim
+    u = rng.standard_normal((M, dim))
+    u /= np.linalg.norm(u, axis=1, keepdims=True)
+    x = rng.uniform(-0.5, 0.5, (M, dim))
+    a = np.asarray(space.encode(x))
+    b = np.asarray(space.encode(x + r * u))
+    cs = np.sum(a * b, axis=1) / (np.linalg.norm(a, axis=1)
+                                  * np.linalg.norm(b, axis=1))
+    return float(np.mean(cs))
 
 
 def save_npz(args, filename, **arrays):

@@ -193,7 +193,10 @@ class Model:
             neurons.append(be.neuron_type.init_state(shape, np.float32))
         filters = [np.zeros(shape, np.float32)
                    for shape, _, _ in self.filter_specs]
-        learned = {k: np.asarray(v, np.float32)
+        # initial learned weights the solver left on the device come back
+        # to the host with the rest of the carry
+        learned = {k: np.asarray(v.detach().cpu() if torch.is_tensor(v)
+                                 else v, np.float32)
                    for k, v in self.learned_init.items()}
         return {
             "step": np.zeros((), np.int32),

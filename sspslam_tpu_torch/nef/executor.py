@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from ..ops import learning as learning_ops
+from ..ops.quantize import QTensor, quantize
 from .builder import BuiltConnection, BuiltProbe, Model
 
 __all__ = ["build_params", "make_step_fn", "params_from_numpy",
@@ -32,24 +33,28 @@ __all__ = ["build_params", "make_step_fn", "params_from_numpy",
 
 
 def _parse_param_dtype(matmul_dtype):
-    """Normalise the ``matmul_dtype`` knob into the storage / matmul-input
-    dtype (None: float32 throughout).
+    """Normalise the ``matmul_dtype`` knob into (storage / matmul-input
+    dtype, quantisation kind); (None, None) is float32 throughout.
 
     Accepted: None / "f32" / torch.float32 (full precision), "bf16" /
-    torch.bfloat16 (bf16 storage and matmul inputs, float32 accumulation).
-    "int8" / "fp8" need the quantised storage of ``ops/quantize.py``, which
-    is not ported yet."""
+    torch.bfloat16 (bf16 storage and matmul inputs, float32 accumulation),
+    "int8" / "fp8" (1-byte storage with per-slice scales, see
+    ``ops/quantize.py``, applied after the contraction; matmul inputs bf16,
+    accumulation float32)."""
     if matmul_dtype is None or matmul_dtype == "f32" \
             or matmul_dtype is torch.float32:
-        return None
+        return None, None
     if matmul_dtype == "bf16" or matmul_dtype is torch.bfloat16:
-        return torch.bfloat16
+        return torch.bfloat16, None
     if matmul_dtype in ("int8", "fp8"):
-        raise NotImplementedError(
-            f"matmul_dtype={matmul_dtype!r} needs the quantised parameter "
-            "storage of sspslam_tpu/ops/quantize.py, which the port does not "
-            "have yet (ROADMAP.md, Queue 1 item 6.2); use None or 'bf16'")
+        return torch.bfloat16, matmul_dtype
     raise ValueError(f"unknown matmul_dtype {matmul_dtype!r}")
+
+
+#: params whose contracted-axis length is below this stay in the cast
+#: dtype: per-slice scales on a (n, 1) gate transform would outweigh the
+#: 1-byte payload
+_QUANT_MIN_CONTRACT = 32
 
 
 def _contig(idx):
@@ -126,47 +131,77 @@ def _leaf_tensor(x, device) -> torch.Tensor:
     return torch.as_tensor(arr).to(device)
 
 
+def _recurrent(bc: BuiltConnection) -> bool:
+    """A connection whose pre and post are the same built ensemble group
+    (the VCO limit-cycle feedback, any attractor recurrence).  Quantised
+    storage leaves it in the cast dtype: its decoded feedback is applied
+    every step, so 1-byte rounding would compound where a feedforward path
+    sees it once, and it is a small share of the parameter bytes at
+    scale."""
+    return (bc.post_kind in ("ens", "ea_elem", "ea_batch", "neurons")
+            and getattr(bc.post, "index", None) is not None
+            and getattr(bc.pre, "index", "x") == bc.post.index
+            and bc.pre_kind != "node")
+
+
 def build_params(model: Model, matmul_dtype=None, *, device):
-    """Parameter tree the step reads, every leaf a tensor on ``device``.
+    """Parameter tree the step reads, every leaf a tensor (or a
+    :class:`QTensor` of tensors) on ``device``.
 
     Decoders that the builder solved on the device arrive as tensors and
     stay there; host arrays are uploaded once.  ``matmul_dtype`` ("bf16")
     STORES the matmul-side parameters (encoders / decoders / transforms) in
-    that dtype; bias, gain, learning rates and every learned weight stay
-    float32.  Learning rates are 0-d tensors: changing one in place (e.g.
+    that dtype; "int8" / "fp8" store them as 1-byte :class:`QTensor` with
+    per-slice scales over the axis each contraction reduces (encoders and
+    transforms their last axis, decoders the neuron axis), where that axis
+    has at least ``_QUANT_MIN_CONTRACT`` entries and the connection is not
+    recurrent; the other matmul-side leaves are stored in bf16.  Bias,
+    gain, learning rates and every learned weight stay float32.  Learning
+    rates are 0-d tensors: changing one in place (e.g.
     ``params["hyper"]["lr"][slot].fill_(0)``) changes the next step without
     a new step function or a new CUDA graph.  So are the tables a node
     function hoists (``params["hoisted"]``: the clean-up's sample bank, the
     gates' thresholds), which the node reads from here, on ``device``.
     Filter coefficients are Python floats baked into the step."""
     device = torch.device(device)
-    cast = _parse_param_dtype(matmul_dtype) or torch.float32
-
-    def p(x):
-        return _to(x, device, cast)
+    cast, quant_kind = _parse_param_dtype(matmul_dtype)
+    cast = cast or torch.float32
 
     def f32(x):
         return _to(x, device)
 
-    enc_params = [{"scaled_encoders": p(be.scaled_encoders),
+    def p(x, caxis=None):
+        if (quant_kind is not None and caxis is not None
+                and np.ndim(x) >= 2
+                and np.shape(x)[caxis] >= _QUANT_MIN_CONTRACT):
+            return quantize(f32(x), caxis, quant_kind)
+        return _to(x, device, cast)
+
+    enc_params = [{"scaled_encoders": p(be.scaled_encoders, caxis=-1),
                    "bias": f32(be.bias), "gain": f32(be.gain)}
                   for be in model.ensembles]
     conn_const = {}
     for bc in model.connections:
         d = {}
+        rec = _recurrent(bc)
         if bc.weights is not None:
-            d["W"] = p(bc.weights)
+            # every W form contracts its LAST axis: matmul(W, v),
+            # ein("kds,s->kd"), ein("knm,km->kn")
+            d["W"] = p(bc.weights, caxis=None if rec else -1)
         if bc.decoders is not None and bc.learned_slot is None:
-            d["D"] = p(bc.decoders)
+            # decoders contract the NEURON axis: matmul(act, D),
+            # ein("kn,knd->kd")
+            d["D"] = p(bc.decoders, caxis=None if rec else -2)
         conn_const[str(bc.index)] = d
-    probe_const = {str(bp.index): ({"D": p(bp.decoders)}
+    probe_const = {str(bp.index): ({"D": p(bp.decoders, caxis=-2)}
                                    if bp.decoders is not None else {})
                    for bp in model.probes}
     # batched per-element decode stacks (g, n, d); the members keep their
     # own "D" entries too (read only by weights probes)
     dstack = {}
     for key, bcs in _elem_decode_groups(model).items():
-        dstack[key] = torch.stack([f32(bc.decoders) for bc in bcs]).to(cast)
+        dstack[key] = p(torch.stack([f32(bc.decoders) for bc in bcs]),
+                        caxis=-2)
     # fused-EA layered decode stacks: full-group (k_tot, n, d) matrices with
     # each member's (k_ea, n, d) decoders written into its rows
     for key, bcs in _ea_batch_decode_groups(model).items():
@@ -177,7 +212,7 @@ def build_params(model: Model, matmul_dtype=None, *, device):
         for bc in bcs:
             off, kk = bc.ea_rows
             full[off:off + kk] = f32(bc.decoders)
-        dstack[key] = full.to(cast)
+        dstack[key] = p(full, caxis=-2)
     lr = {}
     for bc in model.connections:
         rule = bc.pes_rule if bc.pes_rule is not None else bc.voja_rule
@@ -190,13 +225,32 @@ def build_params(model: Model, matmul_dtype=None, *, device):
             "dstack": dstack, "hyper": {"lr": lr}, "hoisted": hoisted}
 
 
+def _qtensor_from_host(x, device) -> QTensor:
+    """A port QTensor from a JAX package's QTensor with NumPy children: an
+    int8 payload as it is; a float8_e4m3fn payload (the ``ml_dtypes``
+    dtype, which torch cannot take from NumPy) through its bytes."""
+    q = np.asarray(x.q)
+    if q.dtype == np.int8:
+        tq = torch.from_numpy(np.array(q))
+    elif q.dtype.name == "float8_e4m3fn":
+        tq = torch.from_numpy(np.array(q).view(np.uint8)).view(
+            torch.float8_e4m3fn)
+    else:
+        raise ValueError(f"unknown quantised payload dtype {q.dtype}")
+    s = torch.from_numpy(np.array(x.s, np.float32))
+    return QTensor(tq.to(device), s.to(device), int(x.caxis))
+
+
 def params_from_numpy(model: Model, np_params, *, device, matmul_dtype=None):
     """The port's params from the JAX package's ``build_params(model)`` tree
     with its leaves converted to NumPy arrays: same keys, every leaf a
     tensor on ``device`` (matmul-side leaves cast as ``build_params`` would
-    cast them).  ``model`` is the port's build of the same network; the tree
-    must have exactly the keys the port's ``build_params`` gives it."""
-    cast = _parse_param_dtype(matmul_dtype) or torch.float32
+    cast them).  A quantised leaf (anything with ``q``, ``s`` and
+    ``caxis``, as the JAX package's ``QTensor``) becomes the port's
+    :class:`QTensor` with the same payload and scales.  ``model`` is the
+    port's build of the same network; the tree must have exactly the keys
+    the port's ``build_params`` gives it."""
+    cast = _parse_param_dtype(matmul_dtype)[0] or torch.float32
     own = build_params(model, device="cpu")
     want = _key_tree(own)
     got = _key_tree(np_params)
@@ -206,6 +260,8 @@ def params_from_numpy(model: Model, np_params, *, device, matmul_dtype=None):
     device = torch.device(device)
 
     def leaf(path, x):
+        if hasattr(x, "caxis"):
+            return _qtensor_from_host(x, device)
         t = _leaf_tensor(x, device)
         if path[0] == "hoisted":
             # the dtype the node's own table has (a bf16 clean-up bank)
@@ -242,23 +298,37 @@ def make_step_fn(model: Model, dtype=torch.float32, matmul_dtype=None, *,
     to its value this step.  ``matmul_dtype="bf16"``: encoder / decoder /
     transform matmuls take bf16 inputs and accumulate in float32 (their
     results are float32); state, filters and learned weights stay float32.
+    ``"int8"`` / ``"fp8"``: the step reads :class:`QTensor` params,
+    contracts the bf16-rounded activation against the 1-byte payload in
+    float32 (exact: every int8 and e4m3 value is a bf16 value) and
+    multiplies the output by the per-slice scale.
     """
     device = torch.device(device)
     dt = model.dt
     filt_coeffs = [(a, b) for (_shape, a, b) in model.filter_specs]
     cascade = model.filter_cascade  # Alpha synapses: out slot -> hidden slot
-    mm = _parse_param_dtype(matmul_dtype)
+    mm, _ = _parse_param_dtype(matmul_dtype)
 
     def cast(a):
         # bf16-rounded inputs, float32 arithmetic: the products of two bf16
         # values are exact in float32, so this is a bf16 x bf16 -> f32 matmul
         return a.to(mm).to(dtype) if mm is not None else a
 
+    def qop(op, a, b):
+        """``op`` with one possibly-QTensor operand: the payload against
+        the other operand, then the scale on the output (whose trailing
+        axes are the param's non-contracted axes)."""
+        if isinstance(b, QTensor):
+            return op(cast(a), b.q.to(dtype)) * b.s
+        if isinstance(a, QTensor):
+            return op(a.q.to(dtype), cast(b)) * a.s
+        return op(cast(a), cast(b))
+
     def matmul(a, b):
-        return torch.matmul(cast(a), cast(b))
+        return qop(torch.matmul, a, b)
 
     def ein(spec, a, b):
-        return torch.einsum(spec, cast(a), cast(b))
+        return qop(lambda x, y: torch.einsum(spec, x, y), a, b)
 
     def dev_index(idx):
         return torch.as_tensor(np.asarray(idx), dtype=torch.long,
@@ -436,8 +506,13 @@ def make_step_fn(model: Model, dtype=torch.float32, matmul_dtype=None, *,
                 return filters[bc.filt_index]
             return current_value(bc)
 
+        def zeros(shape):
+            # made from the state, so under torch.func.vmap the buffer is
+            # batched like the values added into it in place
+            return step_no.new_zeros(shape, dtype=dtype)
+
         def gather_node_input(node):
-            x = torch.zeros((node.size_in,), dtype=dtype, device=device)
+            x = zeros((node.size_in,))
             for bc in node_in.get(id(node), []):
                 v = conn_output(bc)
                 if bc.post_indices is not None:
@@ -452,7 +527,7 @@ def make_step_fn(model: Model, dtype=torch.float32, matmul_dtype=None, *,
                 return torch.cat(
                     [conn_output(bc).reshape((bc.ea_rows[1],) + shape[1:])
                      for bc in _tiled_inputs[be.index]], dim=0)
-            x = torch.zeros(shape, dtype=dtype, device=device)
+            x = zeros(shape)
             for bc in ens_in.get(be.index, []):
                 v = conn_output(bc)
                 if bc.post_kind == "ea_batch":
@@ -608,6 +683,8 @@ def make_step_fn(model: Model, dtype=torch.float32, matmul_dtype=None, *,
                 D = (new_learned[bp.target.learned_slot]
                      if bp.target.learned_slot
                      else conn_const[str(bp.target.index)]["D"])
+                if isinstance(D, QTensor):   # quantised static decoders
+                    D = D.dequant()
                 v = D.t() if D.ndim == 2 else D
             elif bp.kind == "scaled_encoders":
                 v = new_learned[bp.target.learned_slot]

@@ -33,6 +33,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from ..ops.quantize import QTensor
 from .builder import Model, build
 from .executor import build_params, make_step_fn, sparse_probe_value
 from .graph import Network, Probe
@@ -43,11 +44,13 @@ __all__ = ["Simulator"]
 
 def _flatten(tree) -> list:
     """Leaves in ``jax.tree_util.tree_flatten`` order: dict keys sorted,
-    lists in order."""
+    lists in order, a QTensor's payload then its scales."""
     if isinstance(tree, dict):
         return [leaf for k in sorted(tree) for leaf in _flatten(tree[k])]
     if isinstance(tree, (list, tuple)):
         return [leaf for v in tree for leaf in _flatten(v)]
+    if isinstance(tree, QTensor):
+        return [tree.q, tree.s]
     return [tree]
 
 
@@ -56,11 +59,47 @@ def _to_device(tree, device):
         return {k: _to_device(v, device) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return [_to_device(v, device) for v in tree]
+    if isinstance(tree, QTensor):
+        return tree.to(device)
     return torch.as_tensor(np.array(tree)).to(device)
 
 
 def _host(x) -> np.ndarray:
     return x.detach().cpu().numpy() if torch.is_tensor(x) else np.asarray(x)
+
+
+def _capture(device, leaves, pos, advance, steps: int):
+    """The CUDA graph of ``steps`` consecutive ``advance()`` calls,
+    captured after one warm-up call on a side stream into buffer row 0
+    (``pos`` zeroed); ``leaves`` (the state and the device indices) are
+    restored after the warm-up."""
+    saved = [x.clone() for x in leaves]
+    pos.zero_()
+    side = torch.cuda.Stream(device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(side):
+        advance()
+    torch.cuda.current_stream(device).wait_stream(side)
+    for x, s in zip(leaves, saved):
+        x.copy_(s)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(steps):
+            advance()
+    return g
+
+
+def _replay(graphs, seg: int, graph_steps: int) -> None:
+    """Replay ``seg`` steps: graphs of ``graph_steps`` steps, then one-step
+    graphs for the rest (``graphs(steps)`` returns, capturing on first use,
+    the graph of that many steps)."""
+    n_full, rem = divmod(seg, graph_steps)
+    g = graphs(graph_steps) if n_full else None
+    g1 = graphs(1) if rem else None
+    for _ in range(n_full):
+        g.replay()
+    for _ in range(rem):
+        g1.replay()
 
 
 class Simulator:
@@ -236,47 +275,30 @@ class Simulator:
         captured on first use after one warm-up step on a side stream; the
         state, row and buffer indices are restored after the warm-up."""
         g = self._graphs.get(steps)
-        if g is not None:
-            return g
-        leaves = _flatten(self.state) + [self._row, self._pos]
-        saved = [x.clone() for x in leaves]
-        self._pos.zero_()
-        side = torch.cuda.Stream(self.device)
-        side.wait_stream(torch.cuda.current_stream(self.device))
-        with torch.cuda.stream(side):
-            self._advance()
-        torch.cuda.current_stream(self.device).wait_stream(side)
-        for x, s in zip(leaves, saved):
-            x.copy_(s)
-        g = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(g):
-            for _ in range(steps):
-                self._advance()
-        self._graphs[steps] = g
+        if g is None:
+            g = self._graphs[steps] = _capture(
+                self.device, _flatten(self.state) + [self._row, self._pos],
+                self._pos, self._advance, steps)
         return g
 
-    def _segment_graphs(self, seg: int):
-        """(graph of GRAPH_STEPS steps, its replays, one-step graph, its
-        replays) for a segment of ``seg`` steps; captures what is missing."""
-        n_full, rem = divmod(seg, self._graph_steps)
-        g = self._graph(self._graph_steps) if n_full else None
-        g1 = self._graph(1) if rem else None
-        return g, n_full, g1, rem
+    def _segment_graphs(self, seg: int) -> None:
+        """Capture the graphs a segment of ``seg`` steps replays."""
+        if seg >= self._graph_steps:
+            self._graph(self._graph_steps)
+        if seg % self._graph_steps:
+            self._graph(1)
 
     def _run_segment(self, seg: int, start_row: int) -> None:
-        graphs = (None if self._eager or self.device.type != "cuda"
-                  else self._segment_graphs(seg))
+        graphs = not self._eager and self.device.type == "cuda"
+        if graphs:
+            self._segment_graphs(seg)
         self._row.fill_(start_row)
         self._pos.zero_()
-        if graphs is None:
+        if not graphs:
             for _ in range(seg):
                 self._advance()
             return
-        g, n_full, g1, rem = graphs
-        for _ in range(n_full):
-            g.replay()
-        for _ in range(rem):
-            g1.replay()
+        _replay(self._graph, seg, self._graph_steps)
 
     # ------------------------------------------------------------------
     def sync(self) -> int:

@@ -1,0 +1,178 @@
+"""Batched episodes of one built model (the data-parallel axis).
+
+Port of :mod:`sspslam_tpu.parallel.trials`.  B episodes of the same built
+model, each with its own input stream and its own state (neurons, filters,
+learned PES / Voja weights, node states), advance together: the executor's
+step runs under ``torch.func.vmap`` over the leading episode axis of the
+state and the inputs, with the parameters shared.  On the card U batched
+steps are captured as one CUDA graph and replayed, as the Simulator does
+for one episode: the input row and the probe-buffer row are device tensors
+advanced inside the graph, and the time-major input table (T, B, size) is
+uploaded once.  A failed vmap or capture raises; nothing falls back to a
+loop over episodes.  The device mesh of the JAX package is not carried
+(one card).
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+import torch.utils._pytree as pytree
+
+from ..nef.simulator import Simulator, _capture, _flatten, _host, _replay
+
+__all__ = ["BatchedEpisodes", "run_batched_episodes", "run_seed_sweep"]
+
+
+class BatchedEpisodes:
+    """B episodes of ``sim``'s model stepped together on ``sim.device``.
+
+    ``tables``: one time-major (T, B, size) array or tensor per tabulated
+    input node, in ``sim.model.input_nodes`` order; steps past row T - 1
+    read the last row.  Every episode starts from ``sim``'s current state;
+    ``sim`` itself is not changed.  ``collect=False`` writes no probe
+    buffers (throughput runs).  ``graph_steps`` is the steps per captured
+    CUDA graph; ``eager = True`` steps eagerly on the card too."""
+
+    def __init__(self, sim: Simulator, tables, *,
+                 graph_steps: int = Simulator.GRAPH_STEPS,
+                 collect: bool = True):
+        model = sim.model
+        if len(tables) != len(model.input_nodes):
+            raise ValueError(f"expected {len(model.input_nodes)} input "
+                             f"tables, got {len(tables)}")
+        self.device = sim.device
+        self.params = sim.params
+        self._table = None
+        self._splits = []
+        B = 1
+        if tables:
+            cols = [torch.as_tensor(t).to(self.device, torch.float32)
+                    for t in tables]
+            B = cols[0].shape[1]
+            if any(c.ndim != 3 or c.shape[:2] != cols[0].shape[:2]
+                   for c in cols):
+                raise ValueError("input tables must share (T, B): "
+                                 f"{[tuple(c.shape) for c in cols]}")
+            self._table = torch.cat(cols, 2).contiguous()
+            offs = np.cumsum([0] + [c.shape[2] for c in cols])
+            self._splits = [(int(offs[i]), int(offs[i + 1]))
+                            for i in range(len(cols))]
+        self.B = B
+        self.state = pytree.tree_map(
+            lambda x: x.expand((B,) + tuple(x.shape)).clone(), sim.state)
+        self._vstep = torch.func.vmap(sim._step_fn, in_dims=(0, 0, None))
+        self._dense = ([bp for bp in model.probes if not bp.sparse]
+                       if collect else [])
+        self._pbuf: Dict[int, torch.Tensor] = {}
+        self._row = torch.zeros(1, dtype=torch.long, device=self.device)
+        self._pos = torch.zeros(1, dtype=torch.long, device=self.device)
+        self._graphs: Dict[int, torch.cuda.CUDAGraph] = {}
+        self.graph_steps = int(graph_steps)
+        self.eager = False
+        self.n_steps = 0
+
+    def _ensure_buffers(self, rows: int) -> None:
+        if not self._dense or (
+                self._pbuf
+                and self._pbuf[self._dense[0].index].shape[0] >= rows):
+            return
+        self._pbuf = {bp.index: torch.zeros((rows, self.B) + tuple(bp.shape),
+                                            dtype=torch.float32,
+                                            device=self.device)
+                      for bp in self._dense}
+        self._graphs.clear()
+
+    def _advance(self) -> None:
+        """One batched step: each episode's input row at the device row
+        index, the vmapped step, the dense probes into their buffers at
+        the device buffer index, the new state copied back."""
+        xs = []
+        if self._table is not None:
+            row = torch.clamp(self._row, max=self._table.shape[0] - 1)
+            x = self._table.index_select(0, row)[0]
+            xs = [x[:, a:b] for a, b in self._splits]
+        new, emits = self._vstep(self.state, xs, self.params)
+        for bp in self._dense:
+            self._pbuf[bp.index].index_copy_(
+                0, self._pos,
+                emits[bp.index].reshape((1, self.B) + tuple(bp.shape)))
+        for dst, src in zip(_flatten(self.state), _flatten(new)):
+            if src is not dst:
+                dst.copy_(src)
+        self._row += 1
+        self._pos += 1
+
+    def _graph(self, steps: int) -> "torch.cuda.CUDAGraph":
+        """The CUDA graph of ``steps`` batched steps (captured on first
+        use, as the Simulator captures its own)."""
+        g = self._graphs.get(steps)
+        if g is None:
+            g = self._graphs[steps] = _capture(
+                self.device, _flatten(self.state) + [self._row, self._pos],
+                self._pos, self._advance, steps)
+        return g
+
+    def run(self, steps: int) -> Optional[Dict[int, torch.Tensor]]:
+        """Advance every episode ``steps`` steps, reading table rows from
+        where the last call stopped.  Returns {probe index: (steps, B, ...)}
+        views of the device buffers (valid until the next call), or None
+        when nothing is collected."""
+        self._ensure_buffers(steps)
+        self._row.fill_(self.n_steps)
+        self._pos.zero_()
+        if self.eager or self.device.type != "cuda":
+            for _ in range(steps):
+                self._advance()
+        else:
+            _replay(self._graph, steps, self.graph_steps)
+        self.n_steps += steps
+        if not self._dense:
+            return None
+        return {k: v[:steps] for k, v in self._pbuf.items()}
+
+    def sync(self) -> int:
+        """Wait for the queued steps; returns the steps run."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        return self.n_steps
+
+
+def run_batched_episodes(sim: Simulator, input_tables: List, n_steps: int,
+                         graph_steps: int = Simulator.GRAPH_STEPS):
+    """Run B episodes of ``sim``'s model in parallel.
+
+    sim : a built Simulator (its current state is every episode's start).
+    input_tables : one (B, n_steps, size) array per tabulated input node, in
+        ``sim.model.input_nodes`` order; uploaded once, time-major.
+
+    Returns ({probe object: (B, n_steps, ...) array} for dense probes, the
+    final state tree with a leading (B,) axis on the device), and leaves
+    ``sim`` untouched."""
+    tables = [torch.as_tensor(t).transpose(0, 1) for t in input_tables]
+    runner = BatchedEpisodes(sim, tables, graph_steps=graph_steps)
+    bufs = runner.run(n_steps)
+    out = {}
+    for bp in runner._dense:
+        v = np.swapaxes(_host(bufs[bp.index]), 0, 1)   # -> (B, n_steps, ...)
+        if bp.period_steps > 1:
+            v = v[:, bp.period_steps - 1::bp.period_steps]
+        out[bp.obj] = v
+    return out, runner.state
+
+
+def run_seed_sweep(sims, n_steps: int, segment_steps: int = 1000):
+    """Run each built Simulator's episode in turn (models of different
+    seeds have different parameters, which one batch cannot share; each
+    Simulator replays its own CUDA graphs).  Returns a list of
+    {probe object: (n_steps, ...)} per sim, this run's rows only."""
+    results = []
+    for sim in sims:
+        dense = [bp for bp in sim.model.probes if not bp.sparse]
+        before = {bp.index: sim.probe_data(bp.obj).shape[0] for bp in dense}
+        sim.run_steps(n_steps, segment_steps=segment_steps)
+        results.append({bp.obj: sim.probe_data(bp.obj)[before[bp.index]:]
+                        for bp in dense})
+    return results

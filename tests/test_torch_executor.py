@@ -317,12 +317,17 @@ def test_bf16_matmuls():
 
 @pytest.mark.parametrize("kind", ["int8", "fp8"])
 def test_quantised_matmul_dtypes_raise(kind):
+    """int8 / fp8 storage is ported (tests/test_torch_quantize.py holds it
+    to the JAX package): a quantised Simulator builds and steps; a 1-byte
+    kind the quantiser does not know (int4 / fp4) raises, as in the JAX
+    package's quantize."""
     net = both(lambda nef, xp: _pes(nef))[1]
-    with pytest.raises(NotImplementedError, match="quantize"):
-        pnef.Simulator(net, seed=10, matmul_dtype=kind, device="cpu")
+    sim = pnef.Simulator(net, seed=10, matmul_dtype=kind, device="cpu")
+    sim.run_steps(20)
+    assert all(np.all(np.isfinite(sim.data[p])) for p in net.probes)
     model = port_build(net, seed=10, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6.2"):
-        make_step_fn(model, matmul_dtype=kind, device="cpu")
+    with pytest.raises(ValueError, match="matmul_dtype"):
+        make_step_fn(model, matmul_dtype=kind[:-1] + "4", device="cpu")
 
 
 def test_params_from_numpy_equals_own_build():

@@ -13,9 +13,11 @@ import numpy as np
 import torch
 
 from sspslam_tpu.nef import Simulator as JaxSimulator
+from sspslam_tpu.ops.quantize import QTensor as JaxQTensor
 
 from sspslam_tpu_torch.nef.builder import build as port_build
 from sspslam_tpu_torch.nef.executor import make_step_fn, params_from_numpy
+from sspslam_tpu_torch.ops.quantize import QTensor
 
 RATE_TOL = 1e-4
 SPIKE_ATOL = 1e-3
@@ -23,9 +25,15 @@ SPIKE_ATOL = 1e-3
 
 def host_params(jax_params):
     """The JAX params tree with float32 NumPy leaves (bf16 leaves widen
-    exactly; params_from_numpy casts them back)."""
-    return jax.tree_util.tree_map(lambda x: np.asarray(x, np.float32),
-                                  jax_params)
+    exactly; params_from_numpy casts them back); a QTensor keeps its 1-byte
+    payload (int8, or ml_dtypes' float8_e4m3fn) and float32 scales."""
+    def host(x):
+        if isinstance(x, JaxQTensor):
+            return JaxQTensor(np.asarray(x.q), np.asarray(x.s, np.float32),
+                              x.caxis)
+        return np.asarray(x, np.float32)
+    return jax.tree_util.tree_map(
+        host, jax_params, is_leaf=lambda x: isinstance(x, JaxQTensor))
 
 
 def with_port_hoisted(model, np_params):
@@ -59,12 +67,22 @@ def to_tensors(tree):
 
 
 def leaves(tree):
-    """Leaves in jax.tree_util order (sorted dict keys)."""
+    """Leaves in jax.tree_util order (sorted dict keys; a QTensor's payload,
+    then its scales)."""
     if isinstance(tree, dict):
         return [x for k in sorted(tree) for x in leaves(tree[k])]
     if isinstance(tree, (list, tuple)):
         return [x for v in tree for x in leaves(v)]
+    if isinstance(tree, (QTensor, JaxQTensor)):
+        return [tree.q, tree.s]
     return [tree]
+
+
+def bits(t):
+    """A tensor's bytes as uint8, for bitwise comparison of any dtype
+    (torch.equal takes no float8 on the CPU)."""
+    return t.contiguous().view(torch.uint8) if t.ndim else \
+        t.reshape(1).view(torch.uint8)
 
 
 def assert_close(got, want, spiking=False, what="probe"):
@@ -91,14 +109,31 @@ def assert_close(got, want, spiking=False, what="probe"):
     assert longest <= max(5, int(0.03 * len(exc))), (what, longest)
 
 
-def assert_params_equal(model, params):
-    """The port's own ``build_params(model)`` equals ``params`` (the JAX
-    package's, carried across) leaf for leaf, dtype and bits."""
+def assert_params_equal(model, params, matmul_dtype=None):
+    """The port's own ``build_params(model, matmul_dtype)`` equals
+    ``params`` (the JAX package's, carried across) leaf for leaf, dtype and
+    bits, with every quantised leaf at the same place and contraction
+    axis."""
     from sspslam_tpu_torch.nef.executor import build_params
-    own = build_params(model, device="cpu")
+    own = build_params(model, matmul_dtype, device="cpu")
+    assert _caxes(own) == _caxes(params)
     assert len(leaves(own)) == len(leaves(params)) > 0
     for a, b in zip(leaves(own), leaves(params)):
-        assert a.dtype == b.dtype and torch.equal(a, b)
+        assert a.dtype == b.dtype and a.shape == b.shape
+        assert torch.equal(bits(a), bits(b))
+
+
+def _caxes(tree, path=()):
+    """{path: caxis} of a tree's QTensor leaves (either package's)."""
+    if isinstance(tree, dict):
+        return {k: v for key in tree
+                for k, v in _caxes(tree[key], path + (key,)).items()}
+    if isinstance(tree, (list, tuple)):
+        return {k: v for i, x in enumerate(tree)
+                for k, v in _caxes(x, path + (i,)).items()}
+    if isinstance(tree, (QTensor, JaxQTensor)):
+        return {path: tree.caxis}
+    return {}
 
 
 def step_both(jnet, pnet, n_steps, seed=0, jax_matmul=None,
@@ -115,7 +150,7 @@ def step_both(jnet, pnet, n_steps, seed=0, jax_matmul=None,
         model, with_port_hoisted(model, host_params(jsim.params)),
         device="cpu", matmul_dtype=port_matmul)
     if check_params:
-        assert_params_equal(model, params)
+        assert_params_equal(model, params, port_matmul)
     pstep = make_step_fn(model, matmul_dtype=port_matmul, device="cpu")
     jstep = jax.jit(jsim._step_fn)
     tables = [np.asarray(c) for c in jsim._tabulate_inputs(n_steps)]

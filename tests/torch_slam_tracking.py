@@ -4,6 +4,7 @@ of the 14 s world of cos(PI output, encode(path)), as bench.py computes it.
 
     JAX_PLATFORMS=cpu python tests/torch_slam_tracking.py [--pi-n-neurons N]
         [--mem-n-neurons N] [--circonv-n-neurons N] [--cleanup-samples N]
+        [--param-dtype f32|bf16|int8|fp8]
 
 The defaults are a reduced width (ssp_dim 97, 200 LIF per VCO, memory 300,
 30 neurons per circular-convolution dimension, clean-up over 50 x 50
@@ -66,6 +67,8 @@ def tracking(pkg, args, device=None):
             nef.Connection(nef.Node(f), dst, synapse=None)
         probe = nef.Probe(slam.pathintegrator.output, synapse=0.05)
     kw = {} if device is None else {"device": device}
+    if args.param_dtype != "f32":
+        kw["matmul_dtype"] = args.param_dtype
     t0 = time.perf_counter()
     sim = nef.Simulator(net, seed=args.seed, **kw)
     sim.run_steps(len(path))
@@ -84,6 +87,9 @@ def main():
     ap.add_argument("--circonv-n-neurons", type=int, default=30)
     ap.add_argument("--cleanup-samples", type=int, default=50)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--param-dtype", default="f32",
+                    choices=["f32", "bf16", "int8", "fp8"],
+                    help="parameter storage of both packages' Simulators")
     args = ap.parse_args()
     os.environ.setdefault("JAX_PLATFORMS", "cpu")
     import torch
