@@ -77,7 +77,7 @@ result line):
    last quarter of the world from one run of its 14,000 steps (>= 0.93,
    bench.py's gate); the gate's hoisted ``shift_rate`` set to 0 in place
    changes the next replay with no new capture, and the replay equals the
-   eager step at 0; steps/s over 50,000 timed steps after one 10,000-step
+   eager step at 0; steps/s over 5,000 timed steps after one 2,000-step
    warm-up segment (inputs past the world repeat its last row), the card's
    clocks and power read just before and after;
 12. ``SLAMNetwork(gate_mode="auto_recovery", anchor=True)`` at the same
@@ -94,7 +94,7 @@ result line):
    product) on phase 11's traffic: build time and neuron count, graph
    replay against eager over 2,000 steps (max-abs <= 1e-6), kernels per
    step, the tracking cosine over the world (printed: the JAX package sets
-   no gate for this model), steps/s over 50,000 timed steps after one
+   no gate for this model), steps/s over 5,000 timed steps after one
    warm-up segment with the clocks and power read around them;
 15. ``SLAMViewNetwork`` at ``run_slamview``'s default widths (700 per VCO,
    memory 970, grid clean-up over 100 x 100) fed by
@@ -107,7 +107,7 @@ result line):
    must be no worse than from-set); ``SLAMNetwork`` at phase 11's width
    with each of the direct-optim, network and network-optim clean-ups,
    replay against eager over 2,000 steps (<= 1e-6), and for direct-optim
-   kernels per step and steps/s over 20,000 timed steps;
+   kernels per step and steps/s over 5,000 timed steps;
 17. ``PathIntegrationReencode``, ``PathIntegrationGC`` and
    ``PathIntegrationBCsGCs`` at ssp_dim 97, 800 neurons per ensemble, on
    phase 8's velocities: replay against eager over 1,000 steps (<= 1e-6)
@@ -120,11 +120,11 @@ result line):
    ``matmul_dtype="int8"`` and again ``"fp8"``: graph replay against eager
    over 2,000 steps (<= 1e-6), kernels per replayed step, the tracking
    cosine over the world (int8 at most 0.05 below float32's, see
-   ``QUANT_TRACKING_BAND``), steps/s over 10,000 timed steps and the bytes
+   ``QUANT_TRACKING_BAND``), steps/s over 5,000 timed steps and the bytes
    of the parameter tree, each beside phase 11's float32 numbers;
 20. batched episodes: phase 11's float32 model, B = 1, 8 and 32 episodes
    of the bench world (episode b's landmarks from seed b) through
-   ``parallel.BatchedEpisodes``: aggregate steps/s over 20,000 timed steps
+   ``parallel.BatchedEpisodes``: aggregate steps/s over 4,000 timed steps
    after a warm-up segment, kernels per replayed batched step (at most
    1.2 x B = 1's: the batch did not loop), peak device memory; at B = 8 the
    batched replay against its eager step over 1,000 steps (<= 1e-6), and
@@ -136,16 +136,54 @@ result line):
    LIF, memory 10,000, 100 landmarks, 2 batched episodes) as a subprocess:
    exit 0 and median_err_slam <= 0.4; then its ``--dp-sweep 1,2,8`` at
    T = 10, one row per B.  The VCO kernel launches 0 times over phases
-   19-21.
+   19-21;
+22. training at the PI fast path's full width (``train_pathint``'s model
+   and worlds: ssp_dim 97, 49 VCOs x 800 LIFRate, 600 steps, segments of
+   100): the gradient of its loss with respect to the recurrent decoders
+   through checkpointed segments against the plain loop (within 1e-5
+   relative), the peak device memory of each (remat's lower), kernels per
+   step under autograd beside the replayed step's; the card's gradient
+   with respect to the readout decoders against the CPU's on the same
+   params, TF32 off (within 1e-4 relative; the recurrent decoders'
+   difference is printed beside its change under a one-rounding nudge:
+   LIFRate's slope is unbounded at threshold); the recurrent decoders'
+   gradient of one 100-step segment of the same model with
+   RectifiedLinear neurons, card against CPU (within 1e-4 relative), the
+   nudge moving it by at most 1e-5; ``SurrogateLIF``'s forward pass
+   against ``LIF``'s over 300 steps (rtol 1e-5); ``train_pathint`` with
+   5 fit steps as a subprocess (its loss falls; seconds per fit step);
+23. ``train_slam`` at the flagship width (ssp_dim 97, 800 per VCO, memory
+   970, 100 per circular-convolution dimension; T = 0.6 s, 2 meta-steps)
+   as a subprocess: its losses, first meta-gradient and tuned scalars
+   finite, the scalars non-negative, seconds per meta-step, peak memory
+   (the gate has not corrected by then, so the meta-gradient is 0);
+   ``train_slam`` at a tiny width and T = 0.5 s on the card and on the
+   CPU: the first meta-gradients nonzero and within 5e-3 of each other;
+   ``tune_loop_closure``'s in-place configuration of a built simulator
+   against a fresh build with that configuration on its 1 s world at the
+   default (flagship) widths (max-abs <= 1e-6 over the trace and final
+   state, the same graphs replayed, the state moved from the base run);
+   ``tune_loop_closure --quick --T 1 --final-T 1 --top 1`` at its default
+   widths: 8 finite rows;
+24. a ``ClosedLoopSession`` on phase 11's SLAM, ticks of 50 steps fed the
+   bench world's rows, against one uninterrupted ``run_steps`` of them
+   over 2,000 steps (max-abs <= 1e-6), one capture for the tick length
+   over all ticks, the tick latency (median, p90, p99 over 100 ticks);
+   ``closed_loop_nav`` at its defaults as a subprocess (its JSON line).
+   The VCO kernel launches 0 times over phases 22-24.
 
-Every CLI subprocess (phases 10, 13, 18 and 21) runs its module as
-``python -m`` does, through runpy, and then prints the VCO kernel's
-launches in that process, which must be 0.
+Every CLI subprocess (phases 10, 13, 18, 21, 22, 23 and 24) runs its
+module as ``python -m`` does, through runpy, and then prints the VCO
+kernel's launches in that process, which must be 0.  The children whose
+times the smoke does not report (phases 10, 13 and 18, and 23's sweep
+and tiny ``train_slam`` pair) run together after phase 17, while the
+smoke's own process waits.
 
-The last seven lines of standard output are one JSON object of the
+The last eight lines of standard output are one JSON object of the
 Simulator's numbers, one of the SLAM numbers, one of phases 14-18
-(``family``), one of phases 19-21 (``scaled``), the card's name and power
-limit, one JSON object describing the kernel, and the result line.
+(``family``), one of phases 19-21 (``scaled``), one of phases 22-24
+(``train``), the card's name and power limit, one JSON object describing
+the kernel, and the result line.
 
 To compare the kernel of two checkouts on one card, time each in turns
 within one command (the other commit unpacked into a git-ignored
@@ -163,8 +201,10 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -185,10 +225,11 @@ ACCURACY_TOL = 0.25   # decode error after 800 steps at constant velocity
 GRAPH_UNITS = (1, 10, 100)  # steps per captured CUDA graph, timed in turn
 EAGER_TIMED = 2_000   # eager steps timed on PI (after one warm-up segment)
 EAGER_WARM = 1_000    # the eager timing's warm-up segment (no capture)
-# timed steps of the SLAM-family Simulator paths (phases 11, 14, 15), after
-# one CHUNK-step warm-up segment: 20,000 read the same steps/s as 50,000
-# within their spread (PERF.md) and leave the smoke room for phases 19-21
-SIM_TIMED = 20_000
+# timed steps of the SLAM-family Simulator paths (phases 11, 14-16, 19),
+# after one SIM_WARM-step warm-up segment (the graphs' capture included):
+# kept short so the smoke fits its time limit on a slow host (PERF.md)
+SIM_TIMED = 5_000
+SIM_WARM = 2_000
 REPLAY_TOL = 1e-6     # graph replay vs eager step, max-abs over LONG steps
 PROFILE_STEPS = 20    # the counts per step read the same as over 100 steps
 # bench.py --model slam: the 14 s world, 10 landmarks, view radius 0.8; the
@@ -880,38 +921,81 @@ print(f"vco_scan launches: {vco_scan.vco_scan.launches}")
 """
 
 
-def run_counted(name, *args, timeout=600):
-    """``sspslam_tpu_torch.experiments.<name>`` with ``args``, run as
-    ``python -m`` runs it, in a child that then prints the VCO kernel's
-    launches; it must exit 0 and launch the kernel 0 times (these CLIs step
-    the Simulator or batched episodes).  Logs the child's lines; returns
-    its standard output, the seconds and the launches."""
-    t0 = time.perf_counter()
-    proc = subprocess.run(
+def start_counted(name, *args, env=None):
+    """Start ``sspslam_tpu_torch.experiments.<name>`` with ``args``, run
+    as ``python -m`` runs it, in a child that then prints the VCO kernel's
+    launches (``env``: variables added to the child's environment); its
+    output goes to temporary files.  Returns (name, process, stdout file,
+    stderr file, start time) for ``counted_result``."""
+    out, err = tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+")
+    proc = subprocess.Popen(
         [sys.executable, "-c", _COUNTED_CLI,
          f"sspslam_tpu_torch.experiments.{name}", *args],
-        cwd=Path(__file__).resolve().parent, capture_output=True, text=True,
-        timeout=timeout)
-    seconds = time.perf_counter() - t0
-    for line in proc.stdout.splitlines():
+        cwd=Path(__file__).resolve().parent, stdout=out, stderr=err,
+        text=True, env=dict(os.environ, **(env or {})))
+    return name, proc, out, err, time.perf_counter()
+
+
+def counted_result(child, end):
+    """A finished child of ``start_counted`` that ended at ``end``
+    (perf_counter): it must have exited 0 and launched the VCO kernel 0
+    times (these CLIs step the Simulator or batched episodes).  Logs its
+    lines; returns its standard output, seconds and launches."""
+    name, proc, out, err, t0 = child
+    out.seek(0)
+    stdout = out.read()
+    for line in stdout.splitlines():
         if not line.startswith("  sim "):
             log(f"  {name}: {line.strip()[:400]}")
     if proc.returncode != 0:
+        err.seek(0)
         raise AssertionError(f"{name} exited {proc.returncode}: "
-                             f"{proc.stderr[-2000:]}")
-    line = next(l for l in proc.stdout.splitlines()
+                             f"{err.read()[-2000:]}")
+    line = next(l for l in stdout.splitlines()
                 if l.startswith("vco_scan launches:"))
     launches = int(line.split()[-1])
     if launches != 0:
         raise AssertionError(f"{name} launched vco_scan: {line}")
-    return proc.stdout, seconds, launches
+    return stdout, end - t0, launches
 
 
-def run_cli(name, *args):
-    """Phases 10, 13 and 18: run_counted, and the child must print finite
-    errors.  Returns the final and median errors, the seconds and the
-    launches the child printed."""
-    stdout, seconds, launches = run_counted(name, *args)
+def run_together(jobs, timeout=600, envs=None):
+    """``jobs`` ({key: (name, *args)}) started at once by
+    ``start_counted`` (``envs``: {key: environment variables}) and waited
+    for together (each killed if the whole takes over ``timeout`` s or
+    another fails first); {key: counted_result}, each child's lines logged
+    under its key."""
+    children = {key: (key,) + start_counted(
+        *job, env=(envs or {}).get(key))[1:] for key, job in jobs.items()}
+    results = {}
+    try:
+        deadline = time.perf_counter() + timeout
+        while len(results) < len(children):
+            for key, child in children.items():
+                if key not in results and child[1].poll() is not None:
+                    results[key] = counted_result(child, time.perf_counter())
+            if time.perf_counter() > deadline:
+                raise AssertionError(f"children still running after "
+                                     f"{timeout} s: "
+                                     f"{sorted(set(children) - set(results))}")
+            time.sleep(0.1)
+        return {key: results[key] for key in jobs}
+    finally:
+        for _, proc, *_ in children.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+
+def run_counted(name, *args, timeout=600):
+    """One ``start_counted`` child, waited for: its ``counted_result``."""
+    return run_together({name: (name, *args)}, timeout)[name]
+
+
+def cli_errors(name, stdout, seconds, launches):
+    """Phases 10, 13 and 18: a ``counted_result`` whose child must have
+    printed finite errors.  Returns the final and median errors, the
+    seconds and the launches the child printed."""
     line = next(l for l in stdout.splitlines()
                 if l.startswith("final distance error"))
     final, median = (float(x) for x in
@@ -922,6 +1006,27 @@ def run_cli(name, *args):
         f"median {median} (printed, not gated)")
     return {"final_error": final, "median_error": median,
             "seconds": seconds, "vco_scan_launches": launches}
+
+
+def untimed_children():
+    """Phases 10, 13 and 18 and 23's sweep and tiny ``train_slam`` pair:
+    the CLI children whose times the smoke does not report, run together
+    while this process waits; {key: counted_result}."""
+    t0 = time.perf_counter()
+    children = run_together({
+        "run_pathint": ("run_pathint",),
+        "run_slam": ("run_slam", "--T", "20"),
+        "run_slamview": ("run_slamview", "--T", "20"),
+        "run_slam_gated": ("run_slam", "--backend", "gated", "--T", "20"),
+        "tune_loop_closure": ("tune_loop_closure", *TUNE_ARGS),
+        "train_slam_meta_cuda": ("train_slam", *META_ARGS),
+        "train_slam_meta_cpu": ("train_slam", *META_ARGS, "--device", "cpu")},
+        timeout=900, envs={
+            "train_slam_meta_cuda": META_ENV,
+            "train_slam_meta_cpu": dict(META_ENV, OMP_NUM_THREADS="1")})
+    log(f"{len(children)} CLI children together: "
+        f"{time.perf_counter() - t0:.1f} s")
+    return children
 
 
 def slam_world():
@@ -1128,7 +1233,7 @@ def slam_path(space, vco):
 
     # (d) steps/s, bench.py's timing: one warm-up segment, then SIM_TIMED
     # steps
-    rate, timed, window = timed_run(sim, probe, SIM_TIMED)
+    rate, timed, window = timed_run(sim, probe, SIM_TIMED, SIM_WARM)
     log(f"SLAM: {rate:.0f} steps/s over {SIM_TIMED} steps (graphs of "
         f"{sim._graph_steps} steps); window ({ClockSampler.QUERY}): just "
         f"before {window[0]}; just after {window[1]}")
@@ -1206,7 +1311,7 @@ def full_checks(what, sim, probe, space, path, build_s, steps=SIM_TIMED):
                 and np.all(np.isfinite(trace)) and np.isfinite(cos)):
             raise AssertionError(f"{what}: the world's trace is not finite")
         out["tracking_cosine"] = cos
-    rate, timed, window = timed_run(sim, probe, steps)
+    rate, timed, window = timed_run(sim, probe, steps, SIM_WARM)
     log(f"{what}: {rate:.0f} steps/s over {steps} steps (graphs of "
         f"{sim._graph_steps} steps); window ({ClockSampler.QUERY}): just "
         f"before {window[0]}; just after {window[1]}")
@@ -1325,7 +1430,7 @@ def family_models(space, vco):
 
 
 DECODE_POINTS = 1_000
-CLEANUP_TIMED = 10_000   # direct-optim's timed steps (one warm-up segment)
+CLEANUP_TIMED = 5_000    # direct-optim's timed steps (one warm-up segment)
 
 
 def cleanup_methods(vco):
@@ -1448,7 +1553,7 @@ def pi_variants(space, vco):
     return out
 
 
-QUANT_TIMED = 10_000     # timed steps of each quantised SLAM (phase 19)
+QUANT_TIMED = 5_000      # timed steps of each quantised SLAM (phase 19)
 # int8 storage may cost the bench world's tracking cosine at most this
 # much against float32's (phase 11): on the card the cosine of one world
 # moves by up to 0.04 between runs that differ only in rounding (the
@@ -1456,7 +1561,7 @@ QUANT_TIMED = 10_000     # timed steps of each quantised SLAM (phase 19)
 # §6), so bench.py's absolute 0.93 is printed for int8, not gated
 QUANT_TRACKING_BAND = 0.05
 BATCHES = (1, 8, 32)     # episodes per batch (phase 20)
-BATCH_TIMED = 20_000     # timed batched steps
+BATCH_TIMED = 4_000      # timed batched steps (a multiple of BATCH_SEG)
 BATCH_SEG = 2_000        # batched segment length: warm-up, then timed
 BATCH_REPLAY = 1_000     # batched replay vs eager steps
 BATCH_EPISODE_STEPS = 2_000   # each episode against a plain Simulator run
@@ -1567,7 +1672,7 @@ def quantised_slam(space, vco, f32):
                 and (cos >= floor or not gated)):
             raise AssertionError(f"{what}: tracking cosine {cos} < {floor}")
         r["tracking_cosine"] = cos
-        rate, timed, window = timed_run(sim, probe, QUANT_TIMED)
+        rate, timed, window = timed_run(sim, probe, QUANT_TIMED, SIM_WARM)
         log(f"{what}: {rate:.0f} steps/s over {QUANT_TIMED} steps (float32 "
             f"{f32['steps_per_s']:.0f}); window ({ClockSampler.QUERY}): "
             f"just before {window[0]}; just after {window[1]}")
@@ -1783,6 +1888,545 @@ def scaled_slam():
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phases 22-24: training through episodes and closed-loop sessions
+# ---------------------------------------------------------------------------
+
+TRAIN_STEPS = 600        # train_pathint's --T-steps
+TRAIN_SEG = 100          # its --segment-steps
+REMAT_TOL = 1e-5         # remat vs plain gradient, relative to max |g|
+CARD_CPU_TOL = 1e-4      # card vs CPU gradients (TF32 off), relative
+# the recurrent decoders' gradient is held card vs CPU where backprop
+# through the dynamics is stable: RectifiedLinear neurons (LIFRate's slope
+# is unbounded at threshold) over one TRAIN_SEG-step segment; a one-rounding
+# nudge of the decoders must move it by at most CARD_CPU_TOL / NUDGE_MARGIN
+NUDGE = 2.0 ** -22
+NUDGE_MARGIN = 10
+SURROGATE_STEPS = 300
+SURROGATE_RTOL = 1e-5    # SurrogateLIF vs LIF forward traces
+TRAIN_PROFILE_STEPS = 20  # forward steps profiled under autograd
+# at 800 per VCO the CLI's default --lr 2e-4 raises the loss in the JAX
+# package's train_pathint as in the port's; 1e-7 lowers it in both (PERF.md)
+TRAIN_ARGS = ("--ssp-dim", str(SSP_DIM), "--pi-n-neurons", str(N_NEURONS),
+              "--T-steps", str(TRAIN_STEPS), "--segment-steps",
+              str(TRAIN_SEG), "--fit-steps", "5", "--lr", "1e-7")
+# train_slam at the flagship width; depth (T = 0.6 s, 2 meta-steps) is
+# the only cut
+SLAM_TRAIN_ARGS = ("--T", "0.6", "--ssp-dim", str(SSP_DIM), "--pi-n-neurons",
+                   str(N_NEURONS), "--mem-n-neurons", "970",
+                   "--cc-n-neurons", "100", "--fit-steps", "2",
+                   "--segment-steps", "200")
+# train_slam's first meta-gradient, card against CPU, at a tiny width and
+# a depth at which the gate has corrected (at the flagship width it has
+# not by T = 2 s, so the gradient there is exactly 0: PERF.md), the
+# clean-up's argmax in float32 on both sides
+META_ARGS = ("--T", "0.5", "--ssp-dim", "13", "--pi-n-neurons", "30",
+             "--mem-n-neurons", "40", "--cc-n-neurons", "10",
+             "--n-landmarks", "4", "--fit-steps", "1", "--segment-steps",
+             "100")
+META_ENV = {"SSPSLAM_CLEANUP_F32": "1"}
+# relative to the largest component: LIFRate's unbounded slope at threshold
+# grows the devices' different roundings over the episode (the JAX and
+# port CPU gradients differ by 9e-4, tests/test_torch_train.py)
+META_GRAD_TOL = 5e-3
+# the sweep at its default (flagship) widths, trimmed grids, short worlds
+TUNE_ARGS = ("--quick", "--T", "1", "--final-T", "1", "--top", "1")
+# tune_loop_closure's in-place configuration against a fresh build: its
+# world (the CLI's defaults) over this many seconds
+TUNE_CHECK_T = 1.0
+TICK = 50                # closed_loop_nav's --tick-steps
+LOOP_STEPS = 2_000       # ticks held to one uninterrupted run
+LATENCY_TICKS = 100      # ticks timed after the check
+
+
+def pathint_training_sim(device, neuron_type=None):
+    """train_pathint's model and training world at full width (ssp_dim
+    97, 49 VCOs x 800 neurons, LIFRate unless ``neuron_type``) on
+    ``device``: (simulator, probe, PathIntegration, encoded path)."""
+    from sspslam_tpu_torch import HexagonalSSPSpace
+    from sspslam_tpu_torch.experiments.train_pathint import make_world
+    from sspslam_tpu_torch.models import PathIntegration
+    from sspslam_tpu_torch.nef import (Connection, LIFRate, Network, Node,
+                                       Probe, Simulator, TimeTable,
+                                       clamp_table)
+    dt = 0.001
+    space = HexagonalSSPSpace(2, ssp_dim=SSP_DIM, seed=SEED, length_scale=0.3,
+                              domain_bounds=1.2 * np.tile([-1, 1.0], (2, 1)))
+    path, vels = make_world(1, TRAIN_STEPS, dt)
+    _, vels_te = make_world(7, TRAIN_STEPS, dt)
+    scale = 1 / max(np.max(np.abs(space.phase_matrix @ vels.T)),
+                    np.max(np.abs(space.phase_matrix @ vels_te.T)))
+    with Network(seed=SEED) as net:
+        vel = Node(TimeTable((vels * scale).astype(np.float32), dt))
+        init = Node(clamp_table(space.encode(path[:1]).flatten(), 0.05, dt))
+        pi = PathIntegration(space, N_NEURONS, 0.05, scaling_factor=scale,
+                             neuron_type=neuron_type or LIFRate())
+        Connection(vel, pi.velocity_input, synapse=None)
+        Connection(init, pi.input, synapse=None)
+        probe = Probe(pi.output, synapse=0.02)
+    sim = Simulator(net, seed=SEED, device=device)
+    return sim, probe, pi, space.encode(path).astype(np.float32)
+
+
+def episode_gradient(sim, probe, targ, params, path, remat,
+                     n_steps=TRAIN_STEPS):
+    """train_pathint's loss over one ``n_steps`` episode (its mask: the
+    first min(100, n_steps // 4) steps settle) and its gradient with
+    respect to the leaf at ``path``, on ``sim.device``: (gradient as
+    NumPy, loss, peak device bytes above the start, seconds)."""
+    from sspslam_tpu_torch import train
+    dev = sim.device
+    ep = train.make_episode_fn(sim, n_steps,
+                               segment_steps=min(TRAIN_SEG, n_steps),
+                               remat=remat)
+    xs = train.episode_inputs(sim, n_steps)
+    pidx = train.probe_index(sim, probe)
+    mask = torch.as_tensor((np.arange(n_steps) >= min(100, n_steps // 4))
+                           .astype(np.float32)[:, None], device=dev)
+    targ = torch.as_tensor(targ[:n_steps], device=dev)
+    trainable, frozen = train.partition_params(params, lambda s: s == path)
+    leaf = []
+
+    def grad_leaf(x):
+        if x is None:
+            return None
+        leaf.append(x.detach().clone().requires_grad_(True))
+        return leaf[-1]
+    trainable = train._tree_map(grad_leaf, trainable)
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    _, emits = ep(train.merge_params(trainable, frozen), xs,
+                  sim.model.initial_state())
+    loss = torch.sum(mask * (emits[pidx] - targ) ** 2) / torch.sum(mask)
+    g, = torch.autograd.grad(loss, leaf[0])
+    g = g.cpu().numpy()
+    seconds = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base if cuda else None
+    return g, float(loss.detach()), peak, seconds
+
+
+def autograd_kernels(sim, probe, params, path):
+    """CUDA kernels per step of TRAIN_PROFILE_STEPS steps of an episode
+    under autograd (one torch.profiler pass after a warm-up): the forward
+    pass alone, then forward and backward together."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from sspslam_tpu_torch import train
+    n = TRAIN_PROFILE_STEPS
+    ep = train.make_episode_fn(sim, n, segment_steps=n, remat=False)
+    xs = train.episode_inputs(sim, n)
+    pidx = train.probe_index(sim, probe)
+    trainable, frozen = train.partition_params(params, lambda s: s == path)
+    trainable = train._tree_map(
+        lambda x: None if x is None else
+        x.detach().clone().requires_grad_(True), trainable)
+    full = train.merge_params(trainable, frozen)
+    leaf = next(x for _, x in train._leaves_with_paths(trainable)
+                if x is not None)
+
+    def run(backward):
+        _, emits = ep(full, xs, sim.model.initial_state())
+        if backward:
+            torch.autograd.grad(emits[pidx].square().sum(), leaf)
+        torch.cuda.synchronize()
+
+    counts = []
+    for backward in (False, True):
+        run(backward)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            run(backward)
+        counts.append(sum(
+            1 for e in prof.events() if e.device_type == DeviceType.CUDA
+            and not e.name.startswith(("Memcpy", "Memset"))) / n)
+    return counts
+
+
+def rel_err(got, want):
+    return float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-30))
+
+
+def nudged(params, path, eps=NUDGE):
+    """``params`` with the connection leaf at ``path`` ("conn/<i>/D")
+    scaled by 1 + eps (the other leaves shared)."""
+    from sspslam_tpu_torch.train import _tree_map
+    out = _tree_map(lambda x: x, params)
+    _, key, leaf = path.split("/")
+    out["conn"][key] = dict(out["conn"][key],
+                            **{leaf: params["conn"][key][leaf] * (1 + eps)})
+    return out
+
+
+def cli_line(stdout, prefix):
+    return next(line for line in stdout.splitlines()
+                if line.startswith(prefix))
+
+
+def cli_numbers(line):
+    import re
+    return [float(x) for x in
+            re.findall(r"-?\d+\.\d+(?:e-?\d+)?", line.split(":", 1)[1])]
+
+
+def train_pathint_phase(vco):
+    """Phase 22: training at the PI fast path's full width (ssp_dim 97, 49
+    VCOs x 800 LIFRate, train_pathint's worlds): (a) the gradient of the
+    loss with respect to the recurrent decoders, checkpointed segments
+    against the plain loop (within REMAT_TOL relative; the peak memory of
+    each, remat's lower), and the kernels per step under autograd beside
+    the replayed step's; (b) the card's readout-decoder gradient against
+    the CPU's on the same params (TF32 off; within CARD_CPU_TOL relative),
+    the recurrent decoders' difference (printed: LIFRate's unbounded slope
+    at threshold makes it move under a one-rounding nudge), and the
+    recurrent decoders' gradient of a TRAIN_SEG-step episode of the same
+    model with RectifiedLinear neurons, card against CPU (within
+    CARD_CPU_TOL), with the nudge moving it by at most CARD_CPU_TOL /
+    NUDGE_MARGIN; (c)
+    SurrogateLIF's forward against LIF's over SURROGATE_STEPS steps
+    (within SURROGATE_RTOL); (d) ``train_pathint`` as a counted child with
+    5 fit steps: its loss falls."""
+    from sspslam_tpu_torch import train
+    from sspslam_tpu_torch.nef import LIF, RectifiedLinear, SurrogateLIF
+    from sspslam_tpu_torch.train import _tree_map
+    torch.backends.cuda.matmul.allow_tf32 = False
+    vco.vco_scan.launches = 0
+    out = {}
+    t0 = time.perf_counter()
+    sim, probe, pi, targ = pathint_training_sim("cuda")
+    out["build_s"] = time.perf_counter() - t0
+    path = train.connection_param_path(sim, pi.recurrent)
+    runs = {}
+    for remat in (False, True):
+        episode_gradient(sim, probe, targ, sim.params, path, remat)  # warm
+        runs[remat] = episode_gradient(sim, probe, targ, sim.params, path,
+                                       remat)
+    g_plain, loss, peak_plain, s_plain = runs[False]
+    g_remat, _, peak_remat, s_remat = runs[True]
+    err = rel_err(g_remat, g_plain)
+    log(f"train (PI, {TRAIN_STEPS} steps, {path}): loss {loss:.6f}; remat "
+        f"vs plain gradient: {err:.3e} relative (tol {REMAT_TOL}); peak "
+        f"memory remat {peak_remat / 2**20:.1f} MiB, plain "
+        f"{peak_plain / 2**20:.1f} MiB; loss + gradient {s_remat:.2f} s "
+        f"remat, {s_plain:.2f} s plain")
+    if not (np.all(np.isfinite(g_remat)) and np.abs(g_plain).max() > 0
+            and err <= REMAT_TOL and peak_remat < peak_plain):
+        raise AssertionError(f"remat gradient {err}, peak {peak_remat} vs "
+                             f"{peak_plain}")
+    k_fwd, k_both = autograd_kernels(sim, probe, sim.params, path)
+    k_graph = profile_steps(sim, False)[0]
+    sim.reset()   # episode_inputs tabulates from the simulator's step
+    log(f"train: kernels per step under autograd: forward {k_fwd:.2f}, "
+        f"forward + backward {k_both:.2f}; the replayed step "
+        f"{k_graph:.2f}")
+    out.update(loss=loss, remat_vs_plain_rel=err,
+               peak_bytes_remat=peak_remat, peak_bytes_plain=peak_plain,
+               seconds_remat=s_remat, seconds_plain=s_plain,
+               kernels_per_step_forward_autograd=k_fwd,
+               kernels_per_step_forward_backward=k_both,
+               kernels_per_step_replayed=k_graph)
+
+    # (b) the same episode on the CPU, on the card's params: the readout
+    # decoders' gradient (no backprop through the dynamics) is held; the
+    # recurrent decoders' is printed beside its change when the forward
+    # pass moves by one rounding (LIFRate's slope is unbounded at the
+    # threshold, so backprop through 600 recurrent steps amplifies the
+    # last bit of a current)
+    readout = next(f"conn/{bc.index}/D" for bc in sim.model.connections
+                   if bc.decoders is not None and bc.post_kind == "node")
+    cpu_sim, cpu_probe, _, _ = pathint_training_sim("cpu")
+    cpu_params = _tree_map(lambda x: x.cpu(), sim.params)
+    g_out, loss_out, _, _ = episode_gradient(sim, probe, targ, sim.params,
+                                             readout, True)
+    g_out_cpu, loss_cpu, _, s_cpu = episode_gradient(
+        cpu_sim, cpu_probe, targ, cpu_params, readout, True)
+    g_rec_cpu = episode_gradient(cpu_sim, cpu_probe, targ, cpu_params, path,
+                                 True)[0]
+    g_rec_nudged = episode_gradient(sim, probe, targ, nudged(sim.params, path),
+                                    path, True)[0]
+    err = rel_err(g_out, g_out_cpu)
+    rec_cpu, rec_nudged = (rel_err(g_remat, g_rec_cpu),
+                           rel_err(g_rec_nudged, g_remat))
+    log(f"train: card vs CPU (TF32 off), loss {loss_out:.7f} vs "
+        f"{loss_cpu:.7f}: the readout decoders' ({readout}) gradient "
+        f"{err:.3e} relative (tol {CARD_CPU_TOL}); the recurrent decoders' "
+        f"{rec_cpu:.3e}, and on the card with them scaled by 1 + 2^-22 "
+        f"{rec_nudged:.3e} (printed); CPU {s_cpu:.1f} s a gradient")
+    if not (np.abs(g_out).max() > 0 and err <= CARD_CPU_TOL):
+        raise AssertionError(f"card vs CPU gradient {err}")
+    out.update(card_vs_cpu_readout_rel=err, card_vs_cpu_recurrent_rel=rec_cpu,
+               recurrent_vs_nudged_rel=rec_nudged, cpu_seconds=s_cpu)
+    del cpu_sim, sim
+
+    # backprop through the recurrent dynamics, card against CPU, where the
+    # gradient is stable: RectifiedLinear, one segment
+    relu, relu_cpu = (pathint_training_sim(dev, RectifiedLinear())
+                      for dev in ("cuda", "cpu"))
+    sim, probe, pi, targ = relu
+    rpath = train.connection_param_path(sim, pi.recurrent)
+    g_relu, loss_relu, _, _ = episode_gradient(sim, probe, targ, sim.params,
+                                               rpath, True, TRAIN_SEG)
+    g_relu_cpu, loss_relu_cpu, _, _ = episode_gradient(
+        relu_cpu[0], relu_cpu[1], targ, _tree_map(lambda x: x.cpu(),
+                                                  sim.params),
+        rpath, True, TRAIN_SEG)
+    g_relu_nudged = episode_gradient(sim, probe, targ,
+                                     nudged(sim.params, rpath), rpath, True,
+                                     TRAIN_SEG)[0]
+    rec_err, rec_nudge = (rel_err(g_relu, g_relu_cpu),
+                          rel_err(g_relu_nudged, g_relu))
+    log(f"train: RectifiedLinear, {TRAIN_SEG} steps, card vs CPU (TF32 off), "
+        f"loss {loss_relu:.7f} vs {loss_relu_cpu:.7f}: the recurrent "
+        f"decoders' ({rpath}) gradient {rec_err:.3e} relative (tol "
+        f"{CARD_CPU_TOL}); on the card with them scaled by 1 + 2^-22 "
+        f"{rec_nudge:.3e} (tol {CARD_CPU_TOL / NUDGE_MARGIN})")
+    if not (np.all(np.isfinite(g_relu)) and np.abs(g_relu).max() > 0
+            and rec_err <= CARD_CPU_TOL
+            and rec_nudge <= CARD_CPU_TOL / NUDGE_MARGIN):
+        raise AssertionError(f"recurrent gradient card vs CPU {rec_err}, "
+                             f"under the nudge {rec_nudge}")
+    out.update(relu_card_vs_cpu_recurrent_rel=rec_err,
+               relu_recurrent_vs_nudged_rel=rec_nudge)
+    del relu, relu_cpu, sim
+
+    # (c) SurrogateLIF's forward pass is LIF's
+    traces = []
+    for nt in (LIF(), SurrogateLIF()):
+        s, p, _, _ = pathint_training_sim("cuda", nt)
+        s.run_steps(SURROGATE_STEPS)
+        traces.append(s.data[p])
+        del s
+    diff = float(np.abs(traces[1] - traces[0]).max())
+    log(f"train: SurrogateLIF vs LIF forward, {SURROGATE_STEPS} steps: "
+        f"max-abs {diff:.3e} (rtol {SURROGATE_RTOL})")
+    if not (np.all(np.isfinite(traces[0])) and np.allclose(
+            traces[1], traces[0], rtol=SURROGATE_RTOL, atol=1e-7)):
+        raise AssertionError(f"SurrogateLIF forward differs from LIF: {diff}")
+    out["surrogate_vs_lif_max_abs"] = diff
+    launches = vco.vco_scan.launches
+    if launches != 0:
+        raise AssertionError(f"training launched vco_scan {launches} times")
+    out["vco_scan_launches"] = launches
+
+    # (d) the CLI
+    stdout, seconds, launches = run_counted("train_pathint", *TRAIN_ARGS)
+    before = cli_numbers(cli_line(stdout, "lstsq-solved:"))
+    after = cli_numbers(cli_line(stdout, "backprop-tuned:"))
+    fit = cli_line(stdout, "fit:")
+    fit_s = float(fit.split(" in ")[1].split("s")[0])
+    first, last = cli_numbers(fit)[-2:]
+    n_fit = int(TRAIN_ARGS[TRAIN_ARGS.index("--fit-steps") + 1])
+    log(f"train_pathint: exit 0 in {seconds:.1f} s; loss {first} -> {last}; "
+        f"errors before {before}, after {after}; {fit_s / n_fit:.2f} s per "
+        f"fit step")
+    if not (np.isfinite(last) and last < first
+            and np.all(np.isfinite(before + after))):
+        raise AssertionError(f"train_pathint: loss {first} -> {last}")
+    out["train_pathint"] = {
+        "loss_first": first, "loss_last": last, "err_before": before,
+        "err_after": after, "seconds_per_fit_step": fit_s / n_fit,
+        "peak_mib": int(cli_line(stdout, "peak device memory:").split()[3]),
+        "seconds": seconds, "vco_scan_launches": launches}
+    return out
+
+
+def train_slam_phase(vco, children):
+    """Phase 23: ``train_slam`` at the flagship width (ssp_dim 97, 800 per
+    VCO, memory 970, 100 per circular-convolution dimension) as a counted
+    child, depth cut (SLAM_TRAIN_ARGS): its losses and first meta-gradient
+    finite, its tuned scalars finite and non-negative; ``tune_in_place``.
+    From ``children`` (counted results run with phase 18's): train_slam's
+    first meta-gradient at META_ARGS on the card against the CPU's,
+    nonzero and within META_GRAD_TOL; ``tune_loop_closure`` (TUNE_ARGS):
+    8 finite rows."""
+    import ast
+    meta = {dev: ast.literal_eval(cli_line(
+        children[f"train_slam_meta_{dev}"][0], "first meta-gradient:")
+        .split(":", 1)[1].strip()) for dev in ("cuda", "cpu")}
+    g_card, g_cpu = (np.array([meta[dev][k] for k in sorted(meta["cpu"])])
+                     for dev in ("cuda", "cpu"))
+    meta_err = rel_err(g_card, g_cpu)
+    log(f"train_slam {' '.join(META_ARGS)}: first meta-gradient on the card "
+        f"{meta['cuda']}, on the CPU {meta['cpu']}: {meta_err:.3e} relative "
+        f"to the largest (tol {META_GRAD_TOL})")
+    if not (meta["cuda"].keys() == meta["cpu"].keys()
+            and np.all(np.isfinite(g_card)) and np.abs(g_cpu).max() > 0
+            and meta_err <= META_GRAD_TOL):
+        raise AssertionError(f"train_slam meta-gradient: card {meta['cuda']}"
+                             f", CPU {meta['cpu']}")
+    stdout, seconds, launches = run_counted("train_slam", *SLAM_TRAIN_ARGS,
+                                            timeout=900)
+    tuned, grad = (ast.literal_eval(cli_line(stdout, p).split(":", 1)[1]
+                                    .strip())
+                   for p in ("tuned:", "first meta-gradient:"))
+    fit = cli_line(stdout, "fit:")
+    fit_s = float(fit.split(" in ")[1].split("s")[0])
+    losses = cli_numbers(fit)[-2:]
+    n_fit = int(SLAM_TRAIN_ARGS[SLAM_TRAIN_ARGS.index("--fit-steps") + 1])
+    peak = int(cli_line(stdout, "peak device memory:").split()[3])
+    errs = [cli_numbers(cli_line(stdout, p))
+            for p in ("swept defaults", "gradient-tuned:")]
+    log(f"train_slam: exit 0 in {seconds:.1f} s; loss {losses[0]} -> "
+        f"{losses[1]}; first meta-gradient {grad}; tuned {tuned}; "
+        f"{fit_s / n_fit:.1f} s per meta-step; peak {peak} MiB; errors "
+        f"{errs}")
+    if not (len(tuned) == 3 and all(np.isfinite(v) and v >= 0
+                                    for v in tuned.values())
+            and grad.keys() == tuned.keys()
+            and np.all(np.isfinite(list(grad.values())))
+            and np.all(np.isfinite(losses))):
+        raise AssertionError(f"train_slam: losses {losses}, first "
+                             f"meta-gradient {grad}, tuned {tuned}")
+    out = {"train_slam": {
+        "tuned": tuned, "first_meta_gradient": grad, "losses": losses,
+        "seconds_per_meta_step": fit_s / n_fit, "peak_mib": peak,
+        "err_before_after": errs, "seconds": seconds,
+        "vco_scan_launches": launches},
+        "meta_gradient_card_vs_cpu": {
+            "card": meta["cuda"], "cpu": meta["cpu"], "rel": meta_err,
+            "vco_scan_launches": children["train_slam_meta_cuda"][2]}}
+    out["tune_in_place"] = tune_in_place(vco)
+    stdout, seconds, launches = children["tune_loop_closure"]
+    rows = [line for line in stdout.splitlines() if line.startswith("[s")]
+    meds = [float(line.split("median ")[1].split(",")[0]) for line in rows]
+    log(f"tune_loop_closure --quick: exit 0 in {seconds:.1f} s; "
+        f"{len(rows)} configurations, medians {meds}")
+    if len(rows) != 8 or not np.all(np.isfinite(meds)):
+        raise AssertionError(f"tune_loop_closure printed {rows}")
+    out["tune_loop_closure"] = {"medians": meds, "seconds": seconds,
+                                "vco_scan_launches": launches}
+    return out
+
+
+def tune_in_place(vco):
+    """Phase 23: tune_loop_closure's in-place configuration on the card,
+    at its default (flagship) widths on its TUNE_CHECK_T-s world.  A
+    simulator built with the sweep's base settings runs the world
+    (capturing its graphs), is ``configure``d with other gate scalars and
+    learning rates and runs it again through the same graphs; a simulator
+    built with those settings runs it too.  The two runs' probe traces and
+    final states agree within REPLAY_TOL and differ from the base run's."""
+    from sspslam_tpu_torch import train
+    from sspslam_tpu_torch.experiments import tune_loop_closure as tlc
+    vco.vco_scan.launches = 0
+    world = tlc.make_world(TUNE_CHECK_T, 0)
+    base = dict(update_thres=0.2, shift_rate=0.2, voja_lr=1e-4, pes_lr=5e-3,
+                intercept=0.1)
+    cfg = dict(base, update_thres=0.4, shift_rate=0.5, pes_lr=2e-2,
+               voja_lr=5e-4)
+
+    def run(sim, probe):
+        tlc.run_config(sim, probe, world)
+        return [sim.data[probe]] + [
+            x.cpu().numpy() for _, x in train._leaves_with_paths(sim.state)]
+
+    def max_abs(a, b):
+        return max(float(np.abs(x.astype(np.float64) - y).max())
+                   for x, y in zip(a, b))
+    t0 = time.perf_counter()
+    sim, probe = tlc.build_sim(world, base, 0, device="cuda")
+    before = run(sim, probe)
+    graphs = dict(sim._graphs)
+    tlc.configure(sim, cfg)
+    got = run(sim, probe)
+    same_graphs = (sim._graphs.keys() == graphs.keys() and all(
+        sim._graphs[k] is g for k, g in graphs.items()))
+    del sim
+    fresh, fprobe = tlc.build_sim(world, cfg, 0, device="cuda")
+    want = run(fresh, fprobe)
+    del fresh
+    err, moved = max_abs(got, want), max_abs(got, before)
+    launches = vco.vco_scan.launches
+    log(f"tune_loop_closure, in place: base -> {cfg} written into a built "
+        f"simulator's params, {world['n_steps']} steps: against a fresh "
+        f"build max-abs {err:.3e} (tol {REPLAY_TOL}) over the probe trace "
+        f"and the final state; moved from the base run by {moved:.3e}; the "
+        f"same graphs replayed: {same_graphs} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    if not (same_graphs and err <= REPLAY_TOL and moved > REPLAY_TOL
+            and launches == 0):
+        raise AssertionError(f"tune_loop_closure in place: {err} against a "
+                             f"fresh build, moved {moved}, same graphs "
+                             f"{same_graphs}, vco_scan launches {launches}")
+    return {"vs_fresh_build_max_abs": err, "vs_base_max_abs": moved,
+            "same_graphs": same_graphs, "vco_scan_launches": launches}
+
+
+def closed_loop_phase(space, vco):
+    """Phase 24: at phase 11's SLAM width on the bench world, a
+    ClosedLoopSession of TICK-step ticks fed the world's rows against one
+    uninterrupted run_steps of them over LOOP_STEPS steps (max-abs <=
+    REPLAY_TOL), one capture for the tick length over all ticks, the tick
+    latency over LATENCY_TICKS more; then ``closed_loop_nav`` at its
+    defaults as a counted child."""
+    from sspslam_tpu_torch.nef import ClosedLoopSession
+    world = slam_world()
+    vco.vco_scan.launches = 0
+    sim, probe, build_s = slam_simulator(space, world)
+    sim.preload_inputs(LOOP_STEPS)
+    sim.run_steps(LOOP_STEPS, segment_steps=LOOP_STEPS)
+    want = sim.data[probe]
+    sim.reset()
+    rows = sim._pack_cols(sim._tabulate_inputs(LOOP_STEPS))
+    nodes = list(zip(sim.model.input_nodes, sim._input_splits()))
+    sess = ClosedLoopSession(sim, outputs=[probe], tick_steps=TICK)
+    t0 = time.perf_counter()
+    sess.compile()
+    sim.sync()
+    compile_s = time.perf_counter() - t0
+    graph = sim._graphs[TICK]
+    got = [sess.tick({n: rows[i:i + TICK, a:b] for n, (a, b) in nodes})[
+        probe] for i in range(0, LOOP_STEPS, TICK)]
+    got = np.concatenate(got)
+    err = float(np.abs(got - want).max())
+    lat = []
+    hold = {n: rows[-1, a:b] for n, (a, b) in nodes}
+    for _ in range(LATENCY_TICKS):
+        t0 = time.perf_counter()
+        sess.tick(hold)
+        lat.append((time.perf_counter() - t0) * 1e3)
+    one_capture = list(sim._graphs) == [TICK] and sim._graphs[TICK] is graph
+    med, p90, p99 = (float(np.percentile(lat, q)) for q in (50, 90, 99))
+    log(f"closed loop (SLAM, ticks of {TICK}): ticks vs uninterrupted run, "
+        f"{LOOP_STEPS} steps: max-abs {err:.3e} (tol {REPLAY_TOL}); graphs "
+        f"after {LOOP_STEPS // TICK + LATENCY_TICKS} ticks: "
+        f"{sorted(sim._graphs)}, the first capture kept: {one_capture}; "
+        f"capture {compile_s:.2f} s; tick latency over {LATENCY_TICKS} "
+        f"ticks: median {med:.2f} ms, p90 {p90:.2f}, p99 {p99:.2f} "
+        f"({1e3 / med:.1f} ticks/s, {TICK / med:.2f} x real time)")
+    if not (got.shape == want.shape and np.all(np.isfinite(got))
+            and err <= REPLAY_TOL and one_capture):
+        raise AssertionError(f"closed loop: max-abs {err}, graphs "
+                             f"{sorted(sim._graphs)}")
+    del sim, sess
+    launches = vco.vco_scan.launches
+    if launches != 0:
+        raise AssertionError(f"the closed loop launched vco_scan {launches} "
+                             f"times")
+    out = {"build_s": build_s, "ticks_vs_run_max_abs": err,
+           "one_capture_per_tick_length": one_capture,
+           "capture_s": compile_s, "tick_latency_ms_median": med,
+           "tick_latency_ms_p90": p90, "tick_latency_ms_p99": p99,
+           "vco_scan_launches": launches}
+    stdout, seconds, launches = run_counted("closed_loop_nav")
+    res = last_json(stdout)
+    keys = ("reached_0p15", "final_dist", "min_dist",
+            "explore_est_err_median", "nav_est_err_median",
+            "tick_latency_ms_median", "tick_latency_ms_p90",
+            "control_rate_hz", "realtime_factor", "n_ticks")
+    log(f"closed_loop_nav: exit 0 in {seconds:.1f} s; "
+        + json.dumps({k: res[k] for k in keys}))
+    if not all(np.isfinite(res[k]) for k in keys[1:]):
+        raise AssertionError(f"closed_loop_nav printed {res}")
+    out["closed_loop_nav"] = dict({k: res[k] for k in keys},
+                                  seconds=seconds,
+                                  vco_scan_launches=launches)
+    return out
+
+
 def time_checkout(root: str) -> None:
     """``--time ROOT``: ms per CHUNK-step chunk of the ``vco_scan`` of the
     checkout at ``root``, at the cluster size it picks, on the main path's
@@ -1873,24 +2517,34 @@ def main() -> int:
     simulator = simulator_path(space, vco, trace)
     simulator["semantics_vs_cpu"] = simulator_semantics()
     simulator["accuracy_error"] = simulator_accuracy(HexagonalSSPSpace)
-    simulator["run_pathint"] = run_cli("run_pathint")
 
-    # 11-13. SLAM
+    # 11-12. SLAM
     slam = slam_path(space, vco)
-    slam["run_slam"] = run_cli("run_slam", "--T", "20")
 
-    # 14-18. the rest of the model family
+    # 14-17. the rest of the model family
     family = family_models(space, vco)
     family["cleanup"] = cleanup_methods(vco)
     family["pi_variants"] = pi_variants(space, vco)
-    family["run_slamview"] = run_cli("run_slamview", "--T", "20")
-    family["run_slam_gated"] = run_cli("run_slam", "--backend", "gated",
-                                       "--T", "20")
+
+    # 10, 13, 18 (and 23's children): run together
+    children = untimed_children()
+    simulator["run_pathint"] = cli_errors("run_pathint",
+                                          *children["run_pathint"])
+    slam["run_slam"] = cli_errors("run_slam", *children["run_slam"])
+    family["run_slamview"] = cli_errors("run_slamview",
+                                        *children["run_slamview"])
+    family["run_slam_gated"] = cli_errors("run_slam --backend gated",
+                                          *children["run_slam_gated"])
 
     # 19-21. quantised storage, batched episodes, the scaled CLI
     scaled = {"quantised": quantised_slam(space, vco, slam),
               "batched": batched_episodes(space, vco),
               "scaled_slam": scaled_slam()}
+
+    # 22-24. training through episodes, closed-loop sessions
+    training = {"pathint": train_pathint_phase(vco),
+                "slam": train_slam_phase(vco, children),
+                "closed_loop": closed_loop_phase(space, vco)}
 
     ms = float(np.mean(full[chosen]))
     b_ms, b_by = bound_ms(fpi.n, fpi.k, fpi.d, fpi.N, CHUNK, spikes)
@@ -1901,6 +2555,7 @@ def main() -> int:
     print(json.dumps({"slam": slam}), flush=True)
     print(json.dumps({"family": family}), flush=True)
     print(json.dumps({"scaled": scaled}), flush=True)
+    print(json.dumps({"train": training}), flush=True)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"kernels": [{
         "name": "vco_scan", "route": "cuda",
@@ -1934,7 +2589,25 @@ def main() -> int:
             "run_slamview (phase 18)":
                 family["run_slamview"]["vco_scan_launches"],
             "run_slam --backend gated (phase 18)":
-                family["run_slam_gated"]["vco_scan_launches"]}}]}))
+                family["run_slam_gated"]["vco_scan_launches"],
+            "training episodes (phase 22)":
+                training["pathint"]["vco_scan_launches"],
+            "train_pathint (phase 22)":
+                training["pathint"]["train_pathint"]["vco_scan_launches"],
+            "train_slam (phase 23)":
+                training["slam"]["train_slam"]["vco_scan_launches"],
+            "tune_loop_closure (phase 23)":
+                training["slam"]["tune_loop_closure"]["vco_scan_launches"],
+            "tune_loop_closure in place (phase 23)":
+                training["slam"]["tune_in_place"]["vco_scan_launches"],
+            "train_slam, tiny width (phase 23)":
+                training["slam"]["meta_gradient_card_vs_cpu"][
+                    "vco_scan_launches"],
+            "closed-loop session (phase 24)":
+                training["closed_loop"]["vco_scan_launches"],
+            "closed_loop_nav (phase 24)":
+                training["closed_loop"]["closed_loop_nav"][
+                    "vco_scan_launches"]}}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": card,
         "count": torch.cuda.device_count()}}))

@@ -10,8 +10,8 @@ where the simulation runs.
 the all-neural ``SLAMGatedNetwork`` (no learned-map extraction, as in the
 JAX CLI).  Either is stepped by the port's :class:`Simulator` (CUDA graphs
 on the card).  Not ported: ``--backend numpy`` (the NumPy interpreter,
-ROADMAP.md Queue 1 item 4; ``--backend cpu`` is ``--device cpu`` here)
-and ``--plot`` (item 5).
+ROADMAP.md Queue 1 item 2; ``--backend cpu`` is ``--device cpu`` here)
+and ``--plot`` (item 3).
 """
 
 import argparse
@@ -38,7 +38,7 @@ def main(argv=None):
     parser = argparse.ArgumentParser(
         description="SSP-SLAM on the port. --backend numpy (the NumPy "
                     "interpreter) is not ported yet (ROADMAP.md Queue 1 "
-                    "item 4), nor is --plot (item 5).",
+                    "item 2), nor is --plot (item 3).",
         formatter_class=argparse.ArgumentDefaultsHelpFormatter)
     add_common_args(parser, default_T=200.0)
     parser.add_argument("--backend", default="jit",
@@ -74,13 +74,13 @@ def main(argv=None):
         raise NotImplementedError(
             f"--backend {backend}: the port runs on --device (--device cpu "
             "for the CPU); the NumPy interpreter is not ported (ROADMAP.md "
-            "Queue 1 item 4)")
+            "Queue 1 item 2)")
     if backend not in BACKENDS:
         raise SystemExit(f"unknown backend {args.backend!r}")
     backend = BACKENDS[backend]
     if args.plot:
         raise NotImplementedError(
-            "--plot is not ported yet (ROADMAP.md Queue 1 item 5); "
+            "--plot is not ported yet (ROADMAP.md Queue 1 item 3); "
             "--save writes the traces to an npz")
     if args.tuned:
         args.update_thres, args.shift_rate = 0.4, 0.1

@@ -1,13 +1,15 @@
 """NEF engine, PyTorch port: declarative graph -> built parameters ->
 stepped simulation.
 
-The graph, distributions, builder, processes, executor and ``Simulator`` of
-:mod:`sspslam_tpu.nef`.  Not ported: ``ClosedLoopSession``, the export
-bundle and the NumPy reference interpreter.
+The graph, distributions, builder, processes, executor, ``Simulator`` and
+``ClosedLoopSession`` of :mod:`sspslam_tpu.nef`.  Not ported: the export
+bundle (``ServingModel``, ``save_bundle``) and the NumPy reference
+interpreter.
 """
 
 from ..ops.neurons import (LIF, LIFRate, LoihiLIF, QuantizedLIF,
-                           RectifiedLinear, SpikingRectifiedLinear)
+                           RectifiedLinear, SpikingRectifiedLinear,
+                           SurrogateLIF)
 from ..ops.synapses import Alpha, Lowpass
 from .builder import Model, build
 from .distributions import (Choice, CosineSimilarity, Distribution,
@@ -18,16 +20,17 @@ from .graph import (BatchedConnection, Connection, Default, Ensemble,
                     EnsembleArray, LearningRule, Network, Neurons, Node,
                     ObjView, PES, Probe, Voja)
 from .processes import TimeTable, WhiteSignal, clamp_table, white_signal
+from .realtime import ClosedLoopSession
 from .simulator import Simulator
 
 __all__ = [
     "LIF", "LIFRate", "LoihiLIF", "QuantizedLIF", "RectifiedLinear",
-    "SpikingRectifiedLinear", "Alpha", "Lowpass", "Model", "build",
+    "SpikingRectifiedLinear", "SurrogateLIF", "Alpha", "Lowpass", "Model", "build",
     "Choice", "CosineSimilarity", "Distribution", "Exponential",
     "Rd", "ScatteredHypersphere", "Sobol", "SSPMixedEval", "SSPSobol",
     "Uniform", "UniformHypersphere",
     "BatchedConnection", "Connection", "Default", "Ensemble", "EnsembleArray",
     "LearningRule", "Network", "Neurons", "Node", "ObjView", "PES", "Probe",
     "Voja", "TimeTable", "WhiteSignal", "clamp_table", "white_signal",
-    "Simulator",
+    "ClosedLoopSession", "Simulator",
 ]

@@ -172,10 +172,15 @@ class Simulator:
         self._graphs.clear()
 
     # ------------------------------------------------------------------
-    def _tabulate_inputs(self, n_steps: int) -> list:
-        """Evaluate f(t)-only nodes for every step on the host, once."""
+    def _tabulate_inputs(self, n_steps: int, only=None) -> list:
+        """Evaluate f(t)-only nodes for every step on the host, once.
+        ``only``: a set of ``id(node)``; the other nodes' columns are None
+        (the closed-loop session tabulates the nodes it does not drive)."""
         cols = []
         for node in self.model.input_nodes:
+            if only is not None and id(node) not in only:
+                cols.append(None)
+                continue
             f = node.output
             if isinstance(f, TimeTable):
                 if abs(f.dt - self.dt) < 1e-9 * self.dt:
@@ -443,15 +448,20 @@ class Simulator:
             return np.zeros((0,) + bp.shape)
         return np.concatenate([_host(c) for c in chunks], axis=0)
 
-    def reset(self):
+    def reset(self, keep_inputs: bool = False):
+        """Back to the initial state at step 0, probe data cleared.
+        ``keep_inputs``: keep a table preloaded from step 0 (and the
+        graphs that read it), for runs of the same inputs under other
+        params (``experiments/tune_loop_closure.py``)."""
         for dst, src in zip(_flatten(self.state),
                             _flatten(self.model.initial_state())):
             dst.copy_(torch.as_tensor(np.array(src)))
         self.n_steps = 0
         self._data_start = 0
-        self._preloaded = None
-        self._preloaded_dev = None
-        self._set_table(None)
+        if not (keep_inputs and self._preload_start == 0):
+            self._preloaded = None
+            self._preloaded_dev = None
+            self._set_table(None)
         for k in self._probe_data:
             self._probe_data[k] = []
         for k in self._sparse_steps:

@@ -3,10 +3,18 @@ LIF update on torch tensors.
 
 Port of :mod:`sspslam_tpu.ops.neurons` (``NeuronType``,
 ``RectifiedLinear``, ``SpikingRectifiedLinear``, ``LIFRate``, ``LIF``,
-``LoihiLIF``, ``QuantizedLIF``; ``SurrogateLIF`` is for training and is not
-ported).  ``gain_bias`` and ``rates_np`` are the same host NumPy code, so
-both packages build bitwise-equal gains and biases.  ``rates`` and ``step``
-take torch tensors of any shape ((n,), (k, n) or (n, k)) on any device.
+``LoihiLIF``, ``QuantizedLIF`` and ``SurrogateLIF``, the LIF whose spike
+carries a surrogate gradient for training).  ``gain_bias`` and ``rates_np``
+are the same host NumPy code, so both packages build bitwise-equal gains
+and biases.  ``rates`` and ``step`` take torch tensors of any shape ((n,),
+(k, n) or (n, k)) on any device.
+
+Every clip of a differentiated value goes through :func:`_clip`: the
+forward pass is ``torch.clamp`` (the same kernel), the backward pass splits
+the gradient like ``jnp.clip`` / ``jnp.maximum`` (half to the value where
+it meets a bound exactly; ``torch.clamp`` passes all of it).  A refractory
+neuron's voltage sits exactly at ``min_voltage``, so this tie occurs every
+step.
 
 ``LIF.step`` keeps the executor's ``-expm1`` / ``log1p`` forms; the VCO-bank
 CUDA kernel (``csrc/vco_scan.cu``) uses the same formulas (``expm1f`` /
@@ -22,7 +30,70 @@ import numpy as np
 import torch
 
 __all__ = ["NeuronType", "LIF", "LIFRate", "RectifiedLinear",
-           "SpikingRectifiedLinear", "QuantizedLIF", "LoihiLIF"]
+           "SpikingRectifiedLinear", "QuantizedLIF", "LoihiLIF",
+           "SurrogateLIF"]
+
+
+class _JaxClip(torch.autograd.Function):
+    """``torch.clamp(x, lo, hi)`` with ``jnp.clip``'s gradient: 1 inside
+    the bounds, 1/2 on a bound, 0 outside (either bound may be None)."""
+
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(x, lo, hi):
+        return torch.clamp(x, lo, hi)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        x, ctx.lo, ctx.hi = inputs
+        ctx.save_for_backward(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, = ctx.saved_tensors
+        w = torch.ones_like(x)
+        for bound, sign in ((ctx.lo, 1.0), (ctx.hi, -1.0)):
+            if bound is not None:
+                w = torch.where(x == bound, 0.5 * w,
+                                torch.where(sign * (x - bound) < 0, 0.0, w))
+        return g * w, None, None
+
+
+def _clip(x, lo=None, hi=None):
+    """``jnp.clip(x, lo, hi)``: ``torch.clamp`` forward; JAX's gradient
+    split at ties when ``x`` is differentiated."""
+    if x.requires_grad and torch.is_grad_enabled():
+        return _JaxClip.apply(x, lo, hi)
+    return torch.clamp(x, lo, hi)
+
+
+class _SpikeSurrogate(torch.autograd.Function):
+    """Heaviside(x) forward; fast-sigmoid pseudo-derivative backward,
+    ``beta / (beta |x| + 1)^2`` (SuperSpike / Zenke & Ganguli 2018): the
+    transpose of the JAX package's ``custom_jvp`` tangent, so the forward
+    simulation stays the hard threshold while gradients see a smooth
+    spike."""
+
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(x, beta):
+        return (x > 0).to(x.dtype)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        x, ctx.beta = inputs
+        ctx.save_for_backward(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, = ctx.saved_tensors
+        sg = ctx.beta / torch.square(ctx.beta * torch.abs(x) + 1.0)
+        return sg * g, None
+
+
+_spike_surrogate = _SpikeSurrogate.apply
 
 
 @dataclasses.dataclass(frozen=True)
@@ -64,7 +135,7 @@ class RectifiedLinear(NeuronType):
         return gain, bias
 
     def rates(self, J):
-        return self.amplitude * torch.clamp_min(J, 0.0)
+        return self.amplitude * _clip(J, 0.0)
 
     def rates_np(self, J):
         return self.amplitude * np.maximum(J, 0.0)
@@ -83,7 +154,7 @@ class SpikingRectifiedLinear(RectifiedLinear):
         return {"voltage": np.zeros(shape, dtype)}
 
     def step(self, state, J, dt):
-        v = state["voltage"] + torch.clamp_min(J, 0.0) * dt
+        v = state["voltage"] + _clip(J, 0.0) * dt
         n_spikes = torch.floor(v)
         out = (self.amplitude / dt) * n_spikes
         return {"voltage": v - n_spikes}, out
@@ -106,11 +177,10 @@ class LIFRate(NeuronType):
         return gain, bias
 
     def rates(self, J):
-        Jm1 = torch.clamp_min(J - 1.0, 0.0)
+        Jm1 = _clip(J - 1.0, 0.0)
         # guard the log for J <= 1 (rate is 0 there)
         r = self.amplitude / (
-            self.tau_ref
-            + self.tau_rc * torch.log1p(1.0 / torch.clamp_min(Jm1, 1e-12)))
+            self.tau_ref + self.tau_rc * torch.log1p(1.0 / _clip(Jm1, 1e-12)))
         return torch.where(J > 1.0 + 1e-9, r, torch.zeros_like(r))
 
     def rates_np(self, J):
@@ -144,20 +214,19 @@ class LIF(LIFRate):
     def step(self, state, J, dt):
         voltage = state["voltage"]
         refractory = state["refractory"] - dt
-        delta_t = torch.clamp(dt - refractory, 0.0, dt)
+        delta_t = _clip(dt - refractory, 0.0, dt)
         voltage = voltage + (J - voltage) * -torch.expm1(-delta_t / self.tau_rc)
 
         spiked = voltage > 1.0
         # interpolate the spike time within the step for smoother rates
-        denom = torch.where(spiked, torch.clamp_min(J - 1.0, 1e-12),
-                            torch.ones_like(J))
-        overshoot = torch.clamp((voltage - 1.0) / denom, 0.0, 1.0 - 1e-6)
+        denom = torch.where(spiked, _clip(J - 1.0, 1e-12), torch.ones_like(J))
+        overshoot = _clip((voltage - 1.0) / denom, 0.0, 1.0 - 1e-6)
         t_spike = dt + self.tau_rc * torch.log1p(-overshoot)
 
         out = torch.where(spiked, torch.full_like(voltage, self.amplitude / dt),
                           torch.zeros_like(voltage))
         voltage = torch.where(spiked, torch.zeros_like(voltage),
-                              torch.clamp_min(voltage, self.min_voltage))
+                              _clip(voltage, self.min_voltage))
         refractory = torch.where(spiked, self.tau_ref + t_spike, refractory)
         return {"voltage": voltage, "refractory": refractory}, out
 
@@ -193,7 +262,7 @@ class LoihiLIF(LIF):
         return np.where(np.asarray(J) > 1.0 + 1e-9, r, 0.0)
 
     def rates(self, J):
-        j = torch.clamp_min(J - 1.0, 1e-12)
+        j = _clip(J - 1.0, 1e-12)
         rq = round(self.tau_ref / self.dt)
         m = torch.ceil((self.tau_rc / self.dt) * torch.log1p(1.0 / j))
         r = self.amplitude / (self.dt * (rq + m))
@@ -202,17 +271,52 @@ class LoihiLIF(LIF):
     def step(self, state, J, dt):
         voltage = state["voltage"]
         refractory = state["refractory"] - dt
-        delta_t = torch.clamp(dt - refractory, 0.0, dt)
+        delta_t = _clip(dt - refractory, 0.0, dt)
         voltage = voltage + (J - voltage) * -torch.expm1(-delta_t / self.tau_rc)
         spiked = voltage > 1.0
         out = torch.where(spiked, torch.full_like(voltage, self.amplitude / dt),
                           torch.zeros_like(voltage))
         voltage = torch.where(spiked, torch.zeros_like(voltage),
-                              torch.clamp_min(voltage, self.min_voltage))
+                              _clip(voltage, self.min_voltage))
         tau_ref_q = float(dt * np.round(self.tau_ref / dt))
         refractory = torch.where(spiked,
                                  torch.full_like(refractory, tau_ref_q + dt),
                                  refractory)
+        return {"voltage": voltage, "refractory": refractory}, out
+
+
+@dataclasses.dataclass(frozen=True)
+class SurrogateLIF(LIF):
+    """Spiking LIF whose forward pass is :class:`LIF`'s (the same spike
+    trains, to float32 rounding: the multiplicative reset rounds otherwise
+    than LIF's select) but whose spike carries a surrogate gradient, so an
+    episode of the executor's step backpropagates (``sspslam_tpu_torch.train``).
+
+    Spikes are ``_spike_surrogate(v - 1)``, 0/1 forward and a fast-sigmoid
+    bump of width ``1/beta`` backward, and the reset and the refractory
+    select are written multiplicatively, so gradients flow through voltage,
+    current and every upstream parameter.  ``beta``: surrogate sharpness.
+    """
+
+    beta: float = 10.0
+
+    def step(self, state, J, dt):
+        voltage = state["voltage"]
+        refractory = state["refractory"] - dt
+        delta_t = _clip(dt - refractory, 0.0, dt)
+        voltage = voltage + (J - voltage) * -torch.expm1(-delta_t / self.tau_rc)
+
+        s = _spike_surrogate(voltage - 1.0, self.beta)   # 0/1, smooth grad
+        spiked = voltage > 1.0                            # hard mask, guards
+        denom = torch.where(spiked, _clip(J - 1.0, 1e-12), torch.ones_like(J))
+        overshoot = _clip((voltage - 1.0) / denom, 0.0, 1.0 - 1e-6)
+        t_spike = dt + self.tau_rc * torch.log1p(-overshoot)
+
+        out = s * (self.amplitude / dt)
+        # multiplicative reset and select: LIF's where() forward (s is 0 or
+        # 1), differentiable through both branches
+        voltage = (1.0 - s) * _clip(voltage, self.min_voltage)
+        refractory = s * (self.tau_ref + t_spike) + (1.0 - s) * refractory
         return {"voltage": voltage, "refractory": refractory}, out
 
 

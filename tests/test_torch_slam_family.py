@@ -380,9 +380,9 @@ def test_clis_match_jax(tmp_path):
 
 def test_run_slamview_plot_and_numpy_backend_not_ported():
     from sspslam_tpu_torch.experiments import run_slam, run_slamview
-    with pytest.raises(NotImplementedError, match="item 5"):
+    with pytest.raises(NotImplementedError, match="item 3"):
         run_slamview.main(["--plot", "--device", "cpu"])
     for backend in ("numpy", "cpu"):
         with pytest.raises(NotImplementedError,
-                           match="--device cpu.*item 4"):
+                           match="--device cpu.*item 2"):
             run_slam.main(["--backend", backend, "--device", "cpu"])

@@ -4,7 +4,11 @@ of the 14 s world of cos(PI output, encode(path)), as bench.py computes it.
 
     JAX_PLATFORMS=cpu python tests/torch_slam_tracking.py [--pi-n-neurons N]
         [--mem-n-neurons N] [--circonv-n-neurons N] [--cleanup-samples N]
-        [--param-dtype f32|bf16|int8|fp8]
+        [--param-dtype f32|bf16|int8|fp8] [--model slam|view]
+
+``--model view`` runs ``SLAMViewNetwork`` fed by
+``get_slamview_input_functions`` on the same world (``chip_smoke.py``
+phase 15's network) in place of ``SLAMNetwork``.
 
 The defaults are a reduced width (ssp_dim 97, 200 LIF per VCO, memory 300,
 30 neurons per circular-convolution dimension, clean-up over 50 x 50
@@ -49,21 +53,35 @@ def tracking(pkg, args, device=None):
     space = top.HexagonalSSPSpace(2, ssp_dim=args.ssp_dim, seed=args.seed,
                                   length_scale=0.3, domain_bounds=bounds)
     lm_space = top.SPSpace(10, space.ssp_dim, seed=args.seed)
-    (vel_f, scale, in_view_f, _, sp_f, _, vecssp_f) = \
-        models.get_slam_input_functions(space, lm_space, vels, vec, 0.8)
+    init = nef.clamp_table(space.encode(path[:1]).ravel(), 0.05)
+    common = dict(pi_n_neurons=args.pi_n_neurons,
+                  mem_n_neurons=args.mem_n_neurons,
+                  circonv_n_neurons=args.circonv_n_neurons,
+                  cleanup_samples_per_dim=args.cleanup_samples,
+                  seed=args.seed)
     with nef.Network(seed=args.seed) as net:
-        slam = models.SLAMNetwork(
-            space, lm_space, 0.8, 10, pi_n_neurons=args.pi_n_neurons,
-            mem_n_neurons=args.mem_n_neurons,
-            circonv_n_neurons=args.circonv_n_neurons,
-            vel_scaling_factor=scale,
-            cleanup_samples_per_dim=args.cleanup_samples, seed=args.seed)
-        for f, dst in ((vel_f, slam.velocity_input),
-                       (nef.clamp_table(space.encode(path[:1]).ravel(), 0.05),
-                        slam.pathintegrator.input),
-                       (sp_f, slam.landmark_id_input),
-                       (vecssp_f, slam.landmark_vec_ssp),
-                       (in_view_f, slam.no_landmark_in_view)):
+        if args.model == "view":
+            vel_f, scale, in_view_f, view_f = \
+                models.get_slamview_input_functions(space, lm_space, vels,
+                                                    vec, 0.8)
+            slam = models.SLAMViewNetwork(space, lm_space, 0.8, 10,
+                                          vel_scaling_factor=scale, **common)
+            inputs = ((vel_f, slam.velocity_input),
+                      (init, slam.pathintegrator.input),
+                      (view_f, slam.view_input),
+                      (in_view_f, slam.no_landmark_in_view))
+        else:
+            (vel_f, scale, in_view_f, _, sp_f, _, vecssp_f) = \
+                models.get_slam_input_functions(space, lm_space, vels, vec,
+                                                0.8)
+            slam = models.SLAMNetwork(space, lm_space, 0.8, 10,
+                                      vel_scaling_factor=scale, **common)
+            inputs = ((vel_f, slam.velocity_input),
+                      (init, slam.pathintegrator.input),
+                      (sp_f, slam.landmark_id_input),
+                      (vecssp_f, slam.landmark_vec_ssp),
+                      (in_view_f, slam.no_landmark_in_view))
+        for f, dst in inputs:
             nef.Connection(nef.Node(f), dst, synapse=None)
         probe = nef.Probe(slam.pathintegrator.output, synapse=0.05)
     kw = {} if device is None else {"device": device}
@@ -87,6 +105,8 @@ def main():
     ap.add_argument("--circonv-n-neurons", type=int, default=30)
     ap.add_argument("--cleanup-samples", type=int, default=50)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--model", default="slam", choices=["slam", "view"],
+                    help="SLAMNetwork or SLAMViewNetwork")
     ap.add_argument("--param-dtype", default="f32",
                     choices=["f32", "bf16", "int8", "fp8"],
                     help="parameter storage of both packages' Simulators")
