@@ -170,20 +170,42 @@ result line):
    over 2,000 steps (max-abs <= 1e-6), one capture for the tick length
    over all ticks, the tick latency (median, p90, p99 over 100 ticks);
    ``closed_loop_nav`` at its defaults as a subprocess (its JSON line).
-   The VCO kernel launches 0 times over phases 22-24.
+   The VCO kernel launches 0 times over phases 22-24;
+25. the serving bundle: phase 11's SLAM warmed for 2,000 steps and
+   ``save_bundle``d (export seconds, MB), served by ``ServingModel`` on the
+   card (CUDA graphs of the exported step) against the live Simulator's
+   continued run of the same 2,000 rows (max-abs <= 1e-6); the same
+   bundle served by a child process that builds nothing (the builder
+   patched to raise) and imports no JAX (its rows equal this process's);
+   a bundle exported on the CPU from the same model served on the card
+   (<= 1e-6 against the live run); an int8 bundle against its live run
+   (<= 1e-6); served (per-segment upload and the final pull included) and
+   live steps/s over 5,000 timed steps; kernels per replayed served step;
+   ``serving_probe``'s JSON keys present and finite;
+26. the NumPy interpreter (``NumpyStepper``) on phase 11's model built
+   with SSPSLAM_CLEANUP_F32=1 against the card's Simulator over 300 steps,
+   within the spike-flip bounds; its steps/s on this host and the card's
+   ratio to it; ``run_slam --backend numpy --T 0.3``: exit 0, finite
+   errors;
+27. the native host library built by g++ at first use and loaded, its six
+   functions equal to their NumPy fallbacks (tests/test_native.py's
+   tolerances); ``trace_run`` around 100 replayed SLAM steps writes a
+   Chrome trace naming the step's kernels.  The VCO kernel launches 0
+   times over phases 25-27.
 
-Every CLI subprocess (phases 10, 13, 18, 21, 22, 23 and 24) runs its
-module as ``python -m`` does, through runpy, and then prints the VCO
+Every CLI subprocess (phases 10, 13, 18, 21, 22, 23, 24, 25 and 26) runs
+its module as ``python -m`` does, through runpy, and then prints the VCO
 kernel's launches in that process, which must be 0.  The children whose
-times the smoke does not report (phases 10, 13 and 18, and 23's sweep
-and tiny ``train_slam`` pair) run together after phase 17, while the
-smoke's own process waits.
+times the smoke does not report (phases 10, 13 and 18, 23's sweep and
+tiny ``train_slam`` pair, 25's ``serving_probe`` and 26's ``run_slam
+--backend numpy``) run together after phase 17, while the smoke's own
+process waits.
 
-The last eight lines of standard output are one JSON object of the
+The last nine lines of standard output are one JSON object of the
 Simulator's numbers, one of the SLAM numbers, one of phases 14-18
 (``family``), one of phases 19-21 (``scaled``), one of phases 22-24
-(``train``), the card's name and power limit, one JSON object describing
-the kernel, and the result line.
+(``train``), one of phases 25-27 (``serving``), the card's name and power
+limit, one JSON object describing the kernel, and the result line.
 
 To compare the kernel of two checkouts on one card, time each in turns
 within one command (the other commit unpacked into a git-ignored
@@ -202,6 +224,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -1009,9 +1032,10 @@ def cli_errors(name, stdout, seconds, launches):
 
 
 def untimed_children():
-    """Phases 10, 13 and 18 and 23's sweep and tiny ``train_slam`` pair:
-    the CLI children whose times the smoke does not report, run together
-    while this process waits; {key: counted_result}."""
+    """Phases 10, 13 and 18, 23's sweep and tiny ``train_slam`` pair,
+    25's ``serving_probe`` and 26's ``run_slam --backend numpy``: the CLI
+    children whose times the smoke does not report, run together while
+    this process waits; {key: counted_result}."""
     t0 = time.perf_counter()
     children = run_together({
         "run_pathint": ("run_pathint",),
@@ -1020,86 +1044,16 @@ def untimed_children():
         "run_slam_gated": ("run_slam", "--backend", "gated", "--T", "20"),
         "tune_loop_closure": ("tune_loop_closure", *TUNE_ARGS),
         "train_slam_meta_cuda": ("train_slam", *META_ARGS),
-        "train_slam_meta_cpu": ("train_slam", *META_ARGS, "--device", "cpu")},
+        "train_slam_meta_cpu": ("train_slam", *META_ARGS, "--device", "cpu"),
+        "serving_probe": ("serving_probe", *SERVING_PROBE_ARGS),
+        "run_slam_numpy": ("run_slam", *NUMPY_SLAM_ARGS)},
         timeout=900, envs={
             "train_slam_meta_cuda": META_ENV,
-            "train_slam_meta_cpu": dict(META_ENV, OMP_NUM_THREADS="1")})
+            "train_slam_meta_cpu": dict(META_ENV, OMP_NUM_THREADS="1"),
+            "run_slam_numpy": {"OMP_NUM_THREADS": "1"}})
     log(f"{len(children)} CLI children together: "
         f"{time.perf_counter() - t0:.1f} s")
     return children
-
-
-def slam_world():
-    """bench.py --model slam's world (``build``): the 14 s figure-eight
-    path, its velocities and SLAM_LANDMARKS landmarks from the seed."""
-    dt = 0.001
-    ts = dt * np.arange(WORLD_STEPS)
-    T = WORLD_STEPS * dt
-    path = 0.8 * np.stack([np.sin(2 * np.pi * ts / T),
-                           np.cos(4 * np.pi * ts / T)], axis=1)
-    vels = (1 / dt) * np.diff(path, axis=0, prepend=path[:1])
-    landmarks = np.random.default_rng(SEED).uniform(
-        -0.7, 0.7, size=(SLAM_LANDMARKS, 2))
-    return path, vels, landmarks, landmarks[None, :, :] - path[:, None, :]
-
-
-def slam_inputs(space, lm_space, world):
-    """bench.py --model slam's input tables for ``world`` through the
-    single-nearest adapter, in the order slam_simulator connects them:
-    velocities, the initial clamp, landmark SP, landmark vector SSP,
-    in-view flag; and the velocity scale."""
-    from sspslam_tpu_torch.models import get_slam_input_functions
-    from sspslam_tpu_torch.nef import clamp_table
-    path, vels, landmarks, vec = world
-    (vel_f, scale, in_view_f, _, sp_f, _, vecssp_f) = \
-        get_slam_input_functions(space, lm_space, vels, vec, VIEW_RAD)
-    return [vel_f, clamp_table(space.encode(path[:1]).ravel(), 0.05), sp_f,
-            vecssp_f, in_view_f], scale
-
-
-def slam_simulator(space, world, gate_mode="reference", anchor=False,
-                   clean_up_method="grid", matmul_dtype=None):
-    """bench.py --model slam's network on the port: SLAMNetwork at full
-    width (800 LIF per VCO, memory 970, 100 neurons per circular-convolution
-    dimension, clean-up over 100 x 100 samples in bf16) fed by the
-    single-nearest adapter, the PI output probed through a 50 ms lowpass.
-    With ``anchor`` the auto-recovery gate reads the first ANCHORS
-    landmarks as surveyed beacons; ``clean_up_method`` picks the clean-up
-    (the MLP ones read ``space.decoder_params``); ``matmul_dtype`` the
-    parameter storage.  Returns (simulator, probe, build s)."""
-    from sspslam_tpu_torch import SPSpace
-    from sspslam_tpu_torch.models import (SLAMNetwork,
-                                          get_anchor_input_functions)
-    from sspslam_tpu_torch.nef import (Connection, Network, Node, Probe,
-                                       Simulator)
-    path, vels, landmarks, vec = world
-    lm_space = SPSpace(SLAM_LANDMARKS, space.ssp_dim, seed=SEED)
-    fns, scale = slam_inputs(space, lm_space, world)
-    with Network(seed=SEED) as net:
-        slam = SLAMNetwork(space, lm_space, VIEW_RAD, SLAM_LANDMARKS,
-                           pi_n_neurons=N_NEURONS, mem_n_neurons=970,
-                           circonv_n_neurons=100, vel_scaling_factor=scale,
-                           cleanup_samples_per_dim=100, seed=SEED,
-                           gate_mode=gate_mode, anchor=anchor,
-                           clean_up_method=clean_up_method)
-        for f, dst in zip(fns, (slam.velocity_input,
-                                slam.pathintegrator.input,
-                                slam.landmark_id_input,
-                                slam.landmark_vec_ssp,
-                                slam.no_landmark_in_view)):
-            Connection(Node(f), dst, synapse=None)
-        if anchor:
-            tables = get_anchor_input_functions(
-                space, vec, np.arange(ANCHORS), landmarks[:ANCHORS],
-                VIEW_RAD)
-            for f, dst in zip(tables, (slam.anchor_pos_input,
-                                       slam.anchor_vec_ssp,
-                                       slam.no_anchor_in_view)):
-                Connection(Node(f), dst, synapse=None)
-        probe = Probe(slam.pathintegrator.output, synapse=0.05)
-    t0 = time.perf_counter()
-    sim = Simulator(net, seed=SEED, device="cuda", matmul_dtype=matmul_dtype)
-    return sim, probe, time.perf_counter() - t0
 
 
 def replay_vs_eager(sim, probe, what):
@@ -1184,6 +1138,7 @@ def slam_path(space, vco):
     """Phases 11 and 12: SLAMNetwork at full width on bench.py --model
     slam's traffic through the Simulator.  Returns the numbers of the SLAM
     JSON line."""
+    from sspslam_tpu_torch.experiments.common import slam_world, slam_simulator
     from sspslam_tpu_torch.utils.profiling import print_utilization_summary
     world = slam_world()
     path = world[0]
@@ -1401,6 +1356,7 @@ def view_simulator(space, world, gate_mode="reference", anchor=False):
 def family_models(space, vco):
     """Phases 14 and 15: SLAMGatedNetwork and SLAMViewNetwork at full width
     on bench.py --model slam's world; the VCO kernel launches 0 times."""
+    from sspslam_tpu_torch.experiments.common import slam_world
     world = slam_world()
     vco.vco_scan.launches = 0
     out = {}
@@ -1438,6 +1394,7 @@ def cleanup_methods(vco):
     four decode methods on DECODE_POINTS random points (direct-optim must
     decode no worse than from-set, the median error); SLAMNetwork at phase
     11's width with each Newton / MLP clean-up through the Simulator."""
+    from sspslam_tpu_torch.experiments.common import slam_world, slam_simulator
     from sspslam_tpu_torch import HexagonalSSPSpace
     space = make_space(HexagonalSSPSpace)
     vco.vco_scan.launches = 0
@@ -1632,6 +1589,7 @@ def quantised_slam(space, vco, f32):
     0.93; fp8 printed), steps/s over QUANT_TIMED steps and the bytes of
     the parameter tree, each beside phase 11's float32 numbers (``f32``);
     the VCO kernel launches 0 times."""
+    from sspslam_tpu_torch.experiments.common import slam_world, slam_simulator
     world = slam_world()
     vco.vco_scan.launches = 0
     out = {}
@@ -1693,6 +1651,7 @@ def episode_tables(sim, space, B):
     episodes of bench.py --model slam's world: the same path, and episode
     b's SLAM_LANDMARKS landmarks drawn from seed SEED + b (episode 0 is
     the bench world)."""
+    from sspslam_tpu_torch.experiments.common import slam_world, slam_inputs
     from sspslam_tpu_torch import SPSpace
     lm_space = SPSpace(SLAM_LANDMARKS, space.ssp_dim, seed=SEED)
     path, vels, _, _ = slam_world()
@@ -1749,6 +1708,7 @@ def batched_episodes(space, vco):
     BATCH_EPISODE_STEPS, and the median printed beside the same statistic
     between two batched runs of one episode (B = 1 and B = BATCH_CHECKED),
     which differ only in the shape of their matrix products."""
+    from sspslam_tpu_torch.experiments.common import slam_world, slam_simulator
     from sspslam_tpu_torch.parallel import BatchedEpisodes
     vco.vco_scan.launches = 0
     sim, probe, build_s = slam_simulator(space, slam_world())
@@ -2362,6 +2322,7 @@ def closed_loop_phase(space, vco):
     REPLAY_TOL), one capture for the tick length over all ticks, the tick
     latency over LATENCY_TICKS more; then ``closed_loop_nav`` at its
     defaults as a counted child."""
+    from sspslam_tpu_torch.experiments.common import slam_world, slam_simulator
     from sspslam_tpu_torch.nef import ClosedLoopSession
     world = slam_world()
     vco.vco_scan.launches = 0
@@ -2425,6 +2386,357 @@ def closed_loop_phase(space, vco):
                                   seconds=seconds,
                                   vco_scan_launches=launches)
     return out
+
+
+SERVE_WARM = 2_000       # live steps before the export (phase 25)
+SERVE_STEPS = 2_000      # steps served against the live run
+SERVE_SEG = 1_000        # the bundle's segment length
+SERVE_TIMED = 5_000      # timed steps, served and live
+INTERP_STEPS = 300       # the interpreter against the card (phase 26)
+TRACE_STEPS = 100        # replayed SLAM steps traced by trace_run (27)
+SERVING_PROBE_ARGS = ("--timed-steps", "5000", "--segment-steps", "1000",
+                      "--reps", "1")
+NUMPY_SLAM_ARGS = ("--backend", "numpy", "--T", "0.3")
+
+# A serving process: loads a bundle with the builder patched to raise,
+# serves the rows, saves the probe rows and checks it imported no JAX.
+_SERVE_CHILD = """
+import sys
+import numpy as np
+import sspslam_tpu_torch.nef.builder as builder
+import sspslam_tpu_torch.nef.simulator as simulator
+
+def refuse(*a, **k):
+    raise AssertionError("the serving process built a model")
+builder.build = simulator.build = refuse
+from sspslam_tpu_torch.nef import ServingModel
+bundle, rows, out = sys.argv[1:4]
+m = ServingModel(bundle, device="cuda")
+(got,) = m.run(np.load(rows)).values()
+np.save(out, got)
+bad = sorted(k for k in sys.modules
+             if k.split(".")[0] in ("jax", "sspslam_tpu", "ml_dtypes"))
+if bad:
+    raise AssertionError(f"the serving process imported {bad[:5]}")
+print("served", got.shape)
+"""
+
+
+def _cpu_tree(tree):
+    from sspslam_tpu_torch.ops.quantize import QTensor
+    if isinstance(tree, dict):
+        return {k: _cpu_tree(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_cpu_tree(v) for v in tree]
+    if isinstance(tree, QTensor):
+        return tree.to("cpu")
+    return tree.detach().cpu()
+
+
+def cpu_twin(sim):
+    """``sim`` as ``save_bundle`` reads it, on the CPU: the same model with
+    the executor's step made for the CPU and the params and state copied
+    there (a shallow copy, no second build)."""
+    import copy
+    from sspslam_tpu_torch.nef.executor import make_step_fn
+    twin = copy.copy(sim)
+    twin.device = torch.device("cpu")
+    twin._step_fn = make_step_fn(sim.model, device="cpu")
+    twin._params = _cpu_tree(sim.params)
+    twin.state = _cpu_tree(sim.state)
+    return twin
+
+
+def bundle_mb(path):
+    return sum(f.stat().st_size for f in Path(path).iterdir()) / 1e6
+
+
+def replay_kernels(graph, reset):
+    """CUDA kernels by name per step of ``graph`` (GRAPH_STEPS captured
+    steps), replayed PROFILE_STEPS / GRAPH_STEPS times under one profiler
+    pass, ``reset()`` first (the graphs read their tables from row 0)."""
+    from collections import Counter
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from sspslam_tpu_torch.nef import Simulator
+    reset()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(PROFILE_STEPS // Simulator.GRAPH_STEPS):
+            graph.replay()
+        torch.cuda.synchronize()
+    names = Counter(e.name for e in prof.events()
+                    if e.device_type == DeviceType.CUDA
+                    and not e.name.startswith(("Memcpy", "Memset")))
+    return {k: v / PROFILE_STEPS for k, v in names.items()}
+
+
+def serving_phase(space, vco, children, slam):
+    """Phase 25: phase 11's SLAM warmed for SERVE_WARM steps and
+    ``save_bundle``d (export seconds, MB); the bundle served by
+    ``ServingModel`` on the card against the live Simulator's continued
+    run of the same SERVE_STEPS rows (max-abs <= REPLAY_TOL); the same
+    bundle served by a child process that builds nothing and imports no
+    JAX (its rows equal this process's); a bundle exported on the CPU from
+    the same model, served on the card; an int8 bundle against its live
+    run; served and live steps/s over SERVE_TIMED steps; kernels per
+    replayed served step; ``serving_probe``'s JSON (run with the untimed
+    children)."""
+    from sspslam_tpu_torch.experiments.common import (slam_simulator,
+                                                      slam_world)
+    from sspslam_tpu_torch.nef import ServingModel, save_bundle
+    world = slam_world()
+    vco.vco_scan.launches = 0
+    out = {}
+    tmp = Path(tempfile.mkdtemp(prefix="serving_"))
+    sim, probe, build_s = slam_simulator(space, world)
+    out["build_s"] = build_s
+    sim.preload_inputs(SERVE_WARM + SERVE_STEPS)
+    sim.run_steps(SERVE_WARM, segment_steps=SERVE_SEG)
+    sim.sync()
+    t0 = time.perf_counter()
+    save_bundle(sim, str(tmp / "card"), segment_steps=SERVE_SEG)
+    out["export_s"] = time.perf_counter() - t0
+    out["bundle_mb"] = bundle_mb(tmp / "card")
+    # the rows the live run reads next (a node function of t tabulated
+    # from another start rounds t otherwise)
+    rows = sim._preloaded[SERVE_WARM:]
+    np.save(tmp / "rows.npy", rows)
+    child = subprocess.Popen(
+        [sys.executable, "-c", _SERVE_CHILD, str(tmp / "card"),
+         str(tmp / "rows.npy"), str(tmp / "child.npy")],
+        cwd=Path(__file__).resolve().parent, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+    try:
+        t0 = time.perf_counter()
+        save_bundle(cpu_twin(sim), str(tmp / "cpu"), segment_steps=SERVE_SEG)
+        out["cpu_export_s"] = time.perf_counter() - t0
+        sim.run_steps(SERVE_STEPS, segment_steps=SERVE_SEG)
+        want = sim.data[probe][-SERVE_STEPS:]
+        m = ServingModel(str(tmp / "card"), device="cuda")
+        (got,) = m.run(rows).values()
+        err = float(np.abs(got - want).max())
+        (from_cpu,) = ServingModel(str(tmp / "cpu"), device="cuda").run(
+            rows).values()
+        cpu_err = float(np.abs(from_cpu - want).max())
+        stdout, stderr = child.communicate(timeout=600)
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+    if child.returncode != 0:
+        raise AssertionError(f"serving child exited {child.returncode}: "
+                             f"{stderr[-2000:]}")
+    child_err = float(np.abs(np.load(tmp / "child.npy") - got).max())
+    differ = np.flatnonzero(np.abs(got - want).reshape(len(got), -1).max(1))
+    log(f"serving: export {out['export_s']:.1f} s (on the CPU "
+        f"{out['cpu_export_s']:.1f} s), bundle {out['bundle_mb']:.1f} MB; "
+        f"served vs live over {SERVE_STEPS} steps after {SERVE_WARM}: "
+        f"max-abs {err:.3e} (tol {REPLAY_TOL}; first differing step "
+        f"{differ[0] if differ.size else None}); child process (no build, no "
+        f"JAX) vs this one: {child_err:.3e}; the CPU-exported bundle on the "
+        f"card vs live: {cpu_err:.3e}")
+    if not (np.all(np.isfinite(got)) and got.shape == want.shape
+            and err <= REPLAY_TOL and child_err == 0.0
+            and cpu_err <= REPLAY_TOL):
+        raise AssertionError(f"serving: served vs live {err}, child "
+                             f"{child_err}, CPU export {cpu_err}")
+    out.update(served_vs_live_max_abs=err, child_vs_parent_max_abs=child_err,
+               cpu_export_vs_live_max_abs=cpu_err)
+
+    # steps/s, served (upload and final pull included) and live
+    sim.preload_inputs(SERVE_SEG + SERVE_TIMED)
+    rows = sim._preloaded[SERVE_SEG:]
+    sim.run_steps(SERVE_SEG, segment_steps=SERVE_SEG)
+    sim.sync()
+    t0 = time.perf_counter()
+    sim.run_steps(SERVE_TIMED, segment_steps=SERVE_SEG)
+    sim.sync()
+    live = SERVE_TIMED / (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    timed = next(iter(m.run(rows).values()))
+    served = SERVE_TIMED / (time.perf_counter() - t0)
+    from sspslam_tpu_torch.nef import Simulator
+    k_served = replay_kernels(m._graph(Simulator.GRAPH_STEPS),
+                              m._row.zero_)
+    k_live = replay_kernels(sim._graph(Simulator.GRAPH_STEPS),
+                            lambda: (sim._row.zero_(), sim._pos.zero_()))
+    differ = {k: (k_served.get(k, 0), k_live.get(k, 0))
+              for k in set(k_served) | set(k_live)
+              if k_served.get(k, 0) != k_live.get(k, 0)}
+    log(f"serving: {served:.0f} steps/s served (per-segment upload and the "
+        f"final pull included) against {live:.0f} live, over {SERVE_TIMED} "
+        f"steps; kernels per replayed step: served "
+        f"{sum(k_served.values()):.2f}, live {sum(k_live.values()):.2f} "
+        f"(phase 11: {slam['kernels_per_step_graph']:.2f}); differing "
+        f"(served, live): "
+        + "; ".join(f"{k[:70]}: {a:.2f}, {b:.2f}"
+                    for k, (a, b) in sorted(differ.items())[:12]))
+    k_served = sum(k_served.values())
+    if not (np.all(np.isfinite(timed)) and timed.shape[0] == SERVE_TIMED):
+        raise AssertionError("serving: the timed run is not finite")
+    out.update(served_steps_per_s=served, live_steps_per_s=live,
+               served_over_live=served / live,
+               kernels_per_served_step=k_served,
+               kernels_per_live_step=sum(k_live.values()))
+    del m, sim
+
+    # an int8 bundle
+    sim, probe, q_build_s = slam_simulator(space, world, matmul_dtype="int8")
+    sim.preload_inputs(SERVE_STEPS)
+    rows = sim._preloaded
+    save_bundle(sim, str(tmp / "int8"), segment_steps=SERVE_SEG)
+    sim.run_steps(SERVE_STEPS, segment_steps=SERVE_SEG)
+    (got,) = ServingModel(str(tmp / "int8"), device="cuda").run(
+        rows).values()
+    q_err = float(np.abs(got - sim.data[probe]).max())
+    log(f"serving: int8 bundle ({bundle_mb(tmp / 'int8'):.1f} MB) vs its "
+        f"live run over {SERVE_STEPS} steps from the start: max-abs "
+        f"{q_err:.3e} (tol {REPLAY_TOL})")
+    if not (np.all(np.isfinite(got)) and q_err <= REPLAY_TOL):
+        raise AssertionError(f"serving: int8 served vs live {q_err}")
+    out.update(int8_served_vs_live_max_abs=q_err,
+               int8_bundle_mb=bundle_mb(tmp / "int8"))
+    del sim
+    shutil.rmtree(tmp, ignore_errors=True)
+
+    stdout, seconds, launches = children["serving_probe"]
+    res = last_json(stdout)
+    keys = ("value", "live_engine_steps_per_s", "serving_over_live",
+            "bundle_mb", "export_s")
+    log(f"serving_probe {' '.join(SERVING_PROBE_ARGS)}: exit 0 in "
+        f"{seconds:.1f} s (run with the untimed children); "
+        + json.dumps({k: res.get(k) for k in keys}))
+    if not all(isinstance(res.get(k), (int, float)) and np.isfinite(res[k])
+               for k in keys):
+        raise AssertionError(f"serving_probe printed {res}")
+    out["serving_probe"] = dict({k: res[k] for k in keys}, seconds=seconds,
+                                vco_scan_launches=launches)
+    out["vco_scan_launches"] = vco.vco_scan.launches
+    if out["vco_scan_launches"] != 0:
+        raise AssertionError(f"serving launched vco_scan "
+                             f"{out['vco_scan_launches']} times")
+    return out
+
+
+def interpreter_phase(space, vco, children, live_steps_per_s):
+    """Phase 26: the NumPy interpreter as an oracle at the flagship width:
+    ``NumpyStepper`` on phase 11's model built with SSPSLAM_CLEANUP_F32=1
+    against the card's Simulator over INTERP_STEPS steps, within the
+    spike-flip bounds; the interpreter's steps/s on this host and the
+    card's ratio to it; ``run_slam --backend numpy --T 0.3`` (run with the
+    untimed children).  Returns the numbers and the simulator (phase 27
+    traces it)."""
+    from sspslam_tpu_torch.experiments.common import (slam_simulator,
+                                                      slam_world)
+    from sspslam_tpu_torch.nef.reference_backend import NumpyStepper
+    vco.vco_scan.launches = 0
+    os.environ["SSPSLAM_CLEANUP_F32"] = "1"
+    try:
+        sim, probe, build_s = slam_simulator(space, slam_world())
+    finally:
+        del os.environ["SSPSLAM_CLEANUP_F32"]
+    tables = [np.asarray(c) for c in sim._tabulate_inputs(INTERP_STEPS)]
+    bp = next(p for p in sim.model.probes if p.obj is probe)
+    t0 = time.perf_counter()
+    ref = NumpyStepper(sim.model).run_steps(INTERP_STEPS, tables)[bp.index]
+    interp = INTERP_STEPS / (time.perf_counter() - t0)
+    sim.run_steps(INTERP_STEPS)
+    card = sim.data[probe]
+    st = spike_flip_check(card, ref, "interpreter vs card")
+    log(f"interpreter (NumpyStepper, host) vs the card's Simulator, "
+        f"{INTERP_STEPS} steps at the flagship width (float32 clean-up): "
+        f"{json.dumps(st)}; the interpreter {interp:.2f} steps/s on this "
+        f"host, the card {live_steps_per_s:.0f} (phase 25): "
+        f"{live_steps_per_s / interp:.1f} x")
+    out = {"build_s": build_s, "vs_card": st,
+           "interpreter_steps_per_s": interp,
+           "card_over_interpreter": live_steps_per_s / interp}
+    stdout, seconds, launches = children["run_slam_numpy"]
+    out["run_slam_numpy"] = cli_errors("run_slam --backend numpy", stdout,
+                                       seconds, launches)
+    out["vco_scan_launches"] = vco.vco_scan.launches
+    if out["vco_scan_launches"] != 0:
+        raise AssertionError("the interpreter phase launched vco_scan")
+    return out, sim
+
+
+def host_phase(sim, vco):
+    """Phase 27: the native host library built (g++, at first use) and
+    loaded, each of its six functions equal to its NumPy fallback within
+    tests/test_native.py's tolerances; ``trace_run`` around TRACE_STEPS
+    replayed SLAM steps writes a Chrome trace naming the step's kernels."""
+    from sspslam_tpu_torch import native
+    from sspslam_tpu_torch.utils.profiling import trace_run
+    vco.vco_scan.launches = 0
+    t0 = time.perf_counter()
+    native.rd_sampling(4, 2)
+    build_s = time.perf_counter() - t0
+    if not native.AVAILABLE:
+        raise AssertionError("the native host library did not build")
+    rng = np.random.default_rng(SEED)
+    traj = rng.normal(size=(50, 2))
+    vecs = rng.normal(size=(200, 5, 2))
+    data = rng.normal(size=(300, 31)).astype(np.float32)
+    bank = rng.normal(size=(500, 31)).astype(np.float32)
+    x = rng.normal(size=(400, 4)).astype(np.float32)
+    J = np.linspace(-1, 10, 64).astype(np.float32)
+    checks = {
+        "rd_sampling": (native.rd_sampling(100, 3, 0.5),
+                        native._rd_sampling_np(100, 3, 0.5), 0, 1e-12),
+        "stretch_trajectory": (native.stretch_trajectory(traj, 0.02, 0.001),
+                               native._stretch_trajectory_np(traj, 1000,
+                                                             0.02), 0, 1e-9),
+        "nearest_landmark": (np.concatenate(native.nearest_landmark(vecs,
+                                                                    1.0)),
+                             np.concatenate(native._nearest_landmark_np(
+                                 vecs, 1.0)), 0, 1e-9),
+        "argmax_decode": (native.argmax_decode(data, bank),
+                          native._argmax_decode_np(data, bank), 0, 0),
+        "lowpass_filter": (native.lowpass_filter(x, 0.05, 0.001),
+                           native._lowpass_filter_np(
+                               x, np.float32(np.exp(-0.001 / 0.05))), 0,
+                           1e-5),
+        "lif_rates": (native.lif_rates(J),
+                      native._lif_rates_np(J, 0.02, 0.002, 1.0), 2e-4, 1e-3)}
+    errs = {}
+    for name, (got, want, rtol, atol) in checks.items():
+        errs[name] = float(np.abs(got - want).max())
+        if not (got.shape == want.shape and np.allclose(
+                got, want, rtol=rtol, atol=atol)):
+            raise AssertionError(f"native {name} differs from its fallback: "
+                                 f"{errs[name]}")
+    log(f"native host library: built and loaded in {build_s:.1f} s; "
+        f"max-abs against the NumPy fallbacks: {errs}")
+
+    tmp = Path(tempfile.mkdtemp(prefix="trace_"))
+    sim.preload_inputs(2 * TRACE_STEPS)
+    sim.run_steps(TRACE_STEPS, segment_steps=TRACE_STEPS)
+    sim.sync()
+    with trace_run(str(tmp)):
+        sim.run_steps(TRACE_STEPS, segment_steps=TRACE_STEPS)
+        sim.sync()
+    (path,) = tmp.glob("*.pt.trace.json")
+    events = json.loads(path.read_text())["traceEvents"]
+    kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+    per_step = len(kernels) / TRACE_STEPS
+    shutil.rmtree(tmp, ignore_errors=True)
+    log(f"trace_run around {TRACE_STEPS} replayed SLAM steps: "
+        f"{per_step:.2f} kernels per step in the trace, "
+        f"{len(set(kernels))} names")
+    if per_step < 100:
+        raise AssertionError(f"trace_run's trace holds {per_step} kernels "
+                             f"per step")
+    out = {"native_build_s": build_s, "native_vs_fallback_max_abs": errs,
+           "trace_kernels_per_step": per_step,
+           "trace_kernel_names": len(set(kernels)),
+           "vco_scan_launches": vco.vco_scan.launches}
+    if out["vco_scan_launches"] != 0:
+        raise AssertionError("the host phase launched vco_scan")
+    return out
+
+
 
 
 def time_checkout(root: str) -> None:
@@ -2546,6 +2858,13 @@ def main() -> int:
                 "slam": train_slam_phase(vco, children),
                 "closed_loop": closed_loop_phase(space, vco)}
 
+    # 25-27. the serving bundle, the interpreter, the host library
+    serving = {"bundle": serving_phase(space, vco, children, slam)}
+    serving["interpreter"], isim = interpreter_phase(
+        space, vco, children, serving["bundle"]["live_steps_per_s"])
+    serving["host"] = host_phase(isim, vco)
+    del isim
+
     ms = float(np.mean(full[chosen]))
     b_ms, b_by = bound_ms(fpi.n, fpi.k, fpi.d, fpi.N, CHUNK, spikes)
     log(f"bound per {CHUNK}-step chunk ({spikes} spikes): {b_ms:.4f} ms "
@@ -2556,6 +2875,7 @@ def main() -> int:
     print(json.dumps({"family": family}), flush=True)
     print(json.dumps({"scaled": scaled}), flush=True)
     print(json.dumps({"train": training}), flush=True)
+    print(json.dumps({"serving": serving}), flush=True)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"kernels": [{
         "name": "vco_scan", "route": "cuda",
@@ -2607,7 +2927,18 @@ def main() -> int:
                 training["closed_loop"]["vco_scan_launches"],
             "closed_loop_nav (phase 24)":
                 training["closed_loop"]["closed_loop_nav"][
-                    "vco_scan_launches"]}}]}))
+                    "vco_scan_launches"],
+            "serving bundle (phase 25)":
+                serving["bundle"]["vco_scan_launches"],
+            "serving_probe (phase 25)":
+                serving["bundle"]["serving_probe"]["vco_scan_launches"],
+            "interpreter (phase 26)":
+                serving["interpreter"]["vco_scan_launches"],
+            "run_slam --backend numpy (phase 26)":
+                serving["interpreter"]["run_slam_numpy"][
+                    "vco_scan_launches"],
+            "host library and trace_run (phase 27)":
+                serving["host"]["vco_scan_launches"]}}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": card,
         "count": torch.cuda.device_count()}}))

@@ -1,20 +1,23 @@
 """Shared experiment-script machinery: CLI flags, path generation, the SSP
-space, decoding and npz saving.
+space, decoding, npz saving, running a built model on a backend, and
+``bench.py --model slam``'s world and network.
 
 A copy of the parts of the JAX package's ``experiments/common.py`` that
 the port's CLIs use (that module imports the JAX package).
-``--device`` (default ``cuda``) replaces ``--backend``.
+``--device`` (default ``cuda``) names where the simulation runs; the CLIs
+that take ``--backend`` add it themselves.
 """
 
 from __future__ import annotations
 
 import argparse
 import os
+import time
 
 import numpy as np
 
 from ..nef import WhiteSignal
-from ..sspspace import HexagonalSSPSpace, RandomSSPSpace
+from ..sspspace import HexagonalSSPSpace, RandomSSPSpace, SPSpace
 
 DT = 0.001
 
@@ -131,3 +134,112 @@ def save_npz(args, filename, **arrays):
     path = os.path.join(os.getcwd(), args.save_dir, filename)
     np.savez(path, **arrays, args=np.array(vars(args), dtype=object))
     print(f"saved {path}")
+
+
+def run_with_backend(sim, backend, T):
+    """Run ``sim``'s model for ``T`` seconds on ``backend``: the Simulator
+    itself (``jit``, ``gated``, ``cpu``: on the device it was built for) or
+    the NumPy interpreter (``numpy``, on the host whatever that device).
+    Returns (probe getter, elapsed seconds, elapsed thread seconds).  The
+    interpreter's getter reads a sparse probe (a weights or encoders
+    snapshot) from its final state."""
+    from ..nef.reference_backend import NumpyStepper
+    if backend != "numpy":
+        t0t = time.thread_time()
+        t0 = time.time()
+        sim.run(T)
+        sim.sync()
+        return (sim.data.__getitem__, time.time() - t0,
+                time.thread_time() - t0t)
+    n_steps = int(round(T / sim.dt))
+    tables = [np.asarray(c) for c in sim._tabulate_inputs(n_steps)]
+    stepper = NumpyStepper(sim.model)
+    t0t = time.thread_time()
+    t0 = time.time()
+    out = stepper.run_steps(n_steps, tables)
+    elapsed, elapsed_t = time.time() - t0, time.thread_time() - t0t
+
+    def getter(probe):
+        bp = next(p for p in sim.model.probes if p.obj is probe)
+        if bp.sparse:
+            return stepper.sparse_probe(bp)[None]
+        return out[bp.index]
+
+    return getter, elapsed, elapsed_t
+
+
+# -- bench.py --model slam's world and network (the flagship) ---------------
+def slam_world(world_T=14.0, n_landmarks=10, seed=0):
+    """bench.py --model slam's world: the figure-eight path of ``world_T``
+    seconds, its velocities, ``n_landmarks`` landmarks drawn from ``seed``
+    and the (steps, landmarks, 2) vectors to them."""
+    ts = DT * np.arange(int(round(world_T / DT)))
+    path = 0.8 * np.stack([np.sin(2 * np.pi * ts / world_T),
+                           np.cos(4 * np.pi * ts / world_T)], axis=1)
+    vels = (1 / DT) * np.diff(path, axis=0, prepend=path[:1])
+    landmarks = np.random.default_rng(seed).uniform(
+        -0.7, 0.7, size=(n_landmarks, 2))
+    return path, vels, landmarks, landmarks[None, :, :] - path[:, None, :]
+
+
+def slam_inputs(space, lm_space, world, view_rad=0.8):
+    """bench.py --model slam's input functions for ``world`` through the
+    single-nearest adapter, in the order :func:`slam_simulator` connects
+    them (velocities, the initial clamp, landmark SP, landmark vector SSP,
+    in-view flag), and the velocity scale."""
+    from ..models import get_slam_input_functions
+    from ..nef import clamp_table
+    path, vels, _, vec = world
+    (vel_f, scale, in_view_f, _, sp_f, _, vecssp_f) = \
+        get_slam_input_functions(space, lm_space, vels, vec, view_rad)
+    return [vel_f, clamp_table(space.encode(path[:1]).ravel(), 0.05), sp_f,
+            vecssp_f, in_view_f], scale
+
+
+def slam_simulator(space, world, gate_mode="reference", anchor=False,
+                   clean_up_method="grid", matmul_dtype=None, *,
+                   pi_n_neurons=800, mem_n_neurons=970, circonv_n_neurons=100,
+                   cleanup_samples=100, view_rad=0.8, n_anchors=3, seed=0,
+                   device="cuda"):
+    """bench.py --model slam's network: SLAMNetwork (by default at the
+    flagship width: 800 LIF per VCO, memory 970, 100 neurons per
+    circular-convolution dimension, clean-up over 100 x 100 samples) fed
+    by :func:`slam_inputs` on ``world``, the PI output probed through a 50
+    ms lowpass.  With ``anchor`` the auto-recovery gate reads the first
+    ``n_anchors`` landmarks as surveyed beacons; ``clean_up_method`` picks
+    the clean-up (the MLP ones read ``space.decoder_params``);
+    ``matmul_dtype`` the parameter storage.  Returns (simulator, probe,
+    build seconds)."""
+    from ..models import SLAMNetwork, get_anchor_input_functions
+    from ..nef import Connection, Network, Node, Probe, Simulator
+    path, vels, landmarks, vec = world
+    n_landmarks = len(landmarks)
+    lm_space = SPSpace(n_landmarks, space.ssp_dim, seed=seed)
+    fns, scale = slam_inputs(space, lm_space, world, view_rad)
+    with Network(seed=seed) as net:
+        slam = SLAMNetwork(space, lm_space, view_rad, n_landmarks,
+                           pi_n_neurons=pi_n_neurons,
+                           mem_n_neurons=mem_n_neurons,
+                           circonv_n_neurons=circonv_n_neurons,
+                           vel_scaling_factor=scale,
+                           cleanup_samples_per_dim=cleanup_samples, seed=seed,
+                           gate_mode=gate_mode, anchor=anchor,
+                           clean_up_method=clean_up_method)
+        for f, dst in zip(fns, (slam.velocity_input,
+                                slam.pathintegrator.input,
+                                slam.landmark_id_input,
+                                slam.landmark_vec_ssp,
+                                slam.no_landmark_in_view)):
+            Connection(Node(f), dst, synapse=None)
+        if anchor:
+            tables = get_anchor_input_functions(
+                space, vec, np.arange(n_anchors), landmarks[:n_anchors],
+                view_rad)
+            for f, dst in zip(tables, (slam.anchor_pos_input,
+                                       slam.anchor_vec_ssp,
+                                       slam.no_anchor_in_view)):
+                Connection(Node(f), dst, synapse=None)
+        probe = Probe(slam.pathintegrator.output, synapse=0.05)
+    t0 = time.perf_counter()
+    sim = Simulator(net, seed=seed, device=device, matmul_dtype=matmul_dtype)
+    return sim, probe, time.perf_counter() - t0

@@ -1,11 +1,14 @@
 """Path-integration CLI on the port: the flags, metrics, npz schema and
 printed lines of the JAX package's ``experiments/run_pathint.py``, with
-``--device`` (default ``cuda``) in place of ``--backend``.
+``--device`` (default ``cuda``) naming where the simulation runs.
 
-    python -m sspslam_tpu_torch.experiments.run_pathint [--device cpu] ...
+    python -m sspslam_tpu_torch.experiments.run_pathint [--device cpu] \
+        [--backend jit|cpu|numpy] ...
 
-The network is stepped by the port's :class:`Simulator` (CUDA graphs on the
-card).
+``--backend jit`` (default) steps the network with the port's
+:class:`Simulator` (CUDA graphs on the card); ``cpu`` is the same on
+``--device cpu``; ``numpy`` runs the NumPy interpreter on the host over
+the model built on ``--device``.
 """
 
 import argparse
@@ -19,7 +22,10 @@ from ..nef import (LIF, Connection, Ensemble, LIFRate, LoihiLIF, Network,
                    Node, Probe, QuantizedLIF, RectifiedLinear, Simulator,
                    TimeTable)
 from .common import (DT, add_common_args, decode_output, make_path,
-                     make_space, save_npz)
+                     make_space, run_with_backend, save_npz)
+
+BACKENDS = {"jit": "jit", "ocl": "jit", "tpu": "jit", "cpu": "cpu",
+            "numpy": "numpy"}
 
 
 def main(argv=None):
@@ -33,8 +39,15 @@ def main(argv=None):
     parser.add_argument("--approx-vel", action="store_true",
                         help="Route velocity through a noisy neural population")
     parser.add_argument("--vel-n-neurons", default=500, type=int)
+    parser.add_argument("--backend", default="jit",
+                        help="jit: the Simulator on --device; cpu: the "
+                             "same on the CPU; numpy: the NumPy "
+                             "interpreter on the host")
     args = parser.parse_args(argv)
-    device = args.device
+    if args.backend.lower() not in BACKENDS:
+        raise SystemExit(f"unknown backend {args.backend!r}")
+    backend = BACKENDS[args.backend.lower()]
+    device = "cpu" if backend == "cpu" else args.device
 
     dt = DT
     radius = 1.0
@@ -77,19 +90,17 @@ def main(argv=None):
 
     sim = Simulator(model, seed=args.seed, default_neuron_type=neuron_type,
                     progress=True, device=device)
-    # tabulate inputs + capture the step's graphs OUTSIDE the timed region
-    n_run_steps = int(round(T / dt))
-    sim.preload_inputs(n_run_steps)
-    t0c = time.time()
-    sim.compile(n_run_steps)
-    print(f"compile: {time.time() - t0c:.1f}s")
-    start_t = time.thread_time()
-    start = time.time()
-    sim.run(T)
-    sim.sync()
-    elapsed_thread_time = time.thread_time() - start_t
-    elapsed_time = time.time() - start
-    pi_out_full = sim.data[ssp_p]
+    if backend != "numpy":
+        # tabulate inputs + capture the step's graphs OUTSIDE the timed
+        # region
+        n_run_steps = int(round(T / dt))
+        sim.preload_inputs(n_run_steps)
+        t0c = time.time()
+        sim.compile(n_run_steps)
+        print(f"compile: {time.time() - t0c:.1f}s")
+    getter, elapsed_time, elapsed_thread_time = run_with_backend(
+        sim, backend, T)
+    pi_out_full = getter(ssp_p)
     print(f"sim wall time: {elapsed_time:.2f}s "
           f"({pi_out_full.shape[0] / elapsed_time:.0f} steps/s)")
 
@@ -109,7 +120,7 @@ def main(argv=None):
 
     if args.save:
         if args.approx_vel:
-            vel_est = sim.data[vel_p]
+            vel_est = getter(vel_p)
             n = min(len(vel_est), len(vels_scaled))
             sig_to_noise_ratio = 10 * np.log10(
                 np.var(vels_scaled[:n])
@@ -119,6 +130,8 @@ def main(argv=None):
         extra = args.save_name_extra
         if args.domain_dim != 2:
             extra = "_dim_" + str(args.domain_dim)
+        if backend == "numpy":
+            extra = "_backend_numpy" + extra
         if device != "cpu":
             extra = "_device_" + device + extra
         if args.approx_vel:

@@ -4,14 +4,16 @@ extraction, npz schema and printed lines of the JAX package's
 where the simulation runs.
 
     python -m sspslam_tpu_torch.experiments.run_slam [--device cpu] \
-        [--backend jit|gated] ...
+        [--backend jit|cpu|numpy|gated] ...
 
-``--backend jit`` (default) builds ``SLAMNetwork``; ``--backend gated``
-the all-neural ``SLAMGatedNetwork`` (no learned-map extraction, as in the
-JAX CLI).  Either is stepped by the port's :class:`Simulator` (CUDA graphs
-on the card).  Not ported: ``--backend numpy`` (the NumPy interpreter,
-ROADMAP.md Queue 1 item 2; ``--backend cpu`` is ``--device cpu`` here)
-and ``--plot`` (item 3).
+``--backend jit`` (default) builds ``SLAMNetwork`` and steps it with the
+port's :class:`Simulator` (CUDA graphs on the card); ``cpu`` is the same
+on ``--device cpu``; ``numpy`` runs the NumPy interpreter
+(:class:`nef.reference_backend.NumpyStepper`) on the host over the model
+built on ``--device`` (with ``--device cpu`` it needs no card);
+``gated`` builds the all-neural ``SLAMGatedNetwork`` (no learned-map
+extraction, as in the JAX CLI).  Not ported: ``--plot`` (ROADMAP.md
+Queue 1 item 1).
 """
 
 import argparse
@@ -27,23 +29,25 @@ from ..sspspace import SPSpace
 from ..utils import Rd_sampling
 from ..utils.profiling import print_utilization_summary
 from .common import (DT, add_common_args, decode_output, make_path,
-                     make_space, save_npz)
+                     make_space, run_with_backend, save_npz)
 
 
-BACKENDS = {"jit": "jit", "ocl": "jit", "tpu": "jit", "gated": "gated",
-            "loihi": "gated", "loihi-sim": "gated"}
+BACKENDS = {"jit": "jit", "ocl": "jit", "tpu": "jit", "cpu": "cpu",
+            "numpy": "numpy", "gated": "gated", "loihi": "gated",
+            "loihi-sim": "gated"}
 
 
 def main(argv=None):
     parser = argparse.ArgumentParser(
-        description="SSP-SLAM on the port. --backend numpy (the NumPy "
-                    "interpreter) is not ported yet (ROADMAP.md Queue 1 "
-                    "item 2), nor is --plot (item 3).",
+        description="SSP-SLAM on the port. --plot is not ported yet "
+                    "(ROADMAP.md Queue 1 item 1).",
         formatter_class=argparse.ArgumentDefaultsHelpFormatter)
     add_common_args(parser, default_T=200.0)
     parser.add_argument("--backend", default="jit",
-                        help="jit: SLAMNetwork; gated: the all-neural "
-                             "SLAMGatedNetwork (both on --device)")
+                        help="jit: SLAMNetwork on --device; cpu: the same "
+                             "on the CPU; numpy: the NumPy interpreter on "
+                             "the host; gated: the all-neural "
+                             "SLAMGatedNetwork on --device")
     parser.add_argument("--n-landmarks", default=50, type=int)
     parser.add_argument("--view-rad", default=0.2, type=float)
     parser.add_argument("--update-thres", default=0.2, type=float)
@@ -70,22 +74,17 @@ def main(argv=None):
                              "loihi = dt-grid Loihi-discretised LIF)")
     args = parser.parse_args(argv)
     backend = args.backend.lower()
-    if backend in ("cpu", "numpy"):
-        raise NotImplementedError(
-            f"--backend {backend}: the port runs on --device (--device cpu "
-            "for the CPU); the NumPy interpreter is not ported (ROADMAP.md "
-            "Queue 1 item 2)")
     if backend not in BACKENDS:
         raise SystemExit(f"unknown backend {args.backend!r}")
     backend = BACKENDS[backend]
     if args.plot:
         raise NotImplementedError(
-            "--plot is not ported yet (ROADMAP.md Queue 1 item 3); "
+            "--plot is not ported yet (ROADMAP.md Queue 1 item 1); "
             "--save writes the traces to an npz")
     if args.tuned:
         args.update_thres, args.shift_rate = 0.4, 0.1
         args.pes_lr, args.voja_lr, args.intercept = 2e-2, 1e-4, 0.3
-    device = args.device
+    device = "cpu" if backend == "cpu" else args.device
 
     dt = DT
     tau = 0.05
@@ -170,19 +169,20 @@ def main(argv=None):
     sim = Simulator(model, seed=args.seed, progress=True,
                     default_neuron_type=neuron_type, device=device)
     print_utilization_summary(sim.model)
-    # tabulate inputs + capture the step's graphs OUTSIDE the timed region
-    n_run_steps = int(round(T / dt))
-    sim.preload_inputs(n_run_steps)
-    t0c = time.time()
-    sim.compile(n_run_steps)
-    print(f"compile: {time.time() - t0c:.1f}s")
-    start_t = time.thread_time()
-    start = time.time()
-    sim.run(T)
-    sim.sync()
-    elapsed_thread_time = time.thread_time() - start_t
-    elapsed_time = time.time() - start
-    slam_out_full = sim.data[slam_output_p]
+    if backend == "numpy":
+        getter, elapsed_time, elapsed_thread_time = run_with_backend(
+            sim, "numpy", T)
+    else:
+        # tabulate inputs + capture the step's graphs OUTSIDE the timed
+        # region
+        n_run_steps = int(round(T / dt))
+        sim.preload_inputs(n_run_steps)
+        t0c = time.time()
+        sim.compile(n_run_steps)
+        print(f"compile: {time.time() - t0c:.1f}s")
+        getter, elapsed_time, elapsed_thread_time = run_with_backend(
+            sim, backend, T)
+    slam_out_full = getter(slam_output_p)
     print(f"sim wall time: {elapsed_time:.2f}s "
           f"({slam_out_full.shape[0] / elapsed_time:.0f} steps/s)")
 
@@ -201,8 +201,8 @@ def main(argv=None):
 
     if args.save:
         if args.approx_vel:
-            v_in = sim.data[_vel_p]
-            v_est = sim.data[vel_p]
+            v_in = getter(_vel_p)
+            v_est = getter(vel_p)
             sig_to_noise_ratio = 10 * np.log10(
                 np.var(v_in) / np.var(v_in - v_est))
         else:
@@ -212,11 +212,11 @@ def main(argv=None):
             # learned-map extraction: the final PES decoders times the
             # memory's rates on the landmark SPs, through the final
             # (probed) Voja encoders
-            decoders = sim.data[mem_weights][-1].T          # (n, d)
+            decoders = getter(mem_weights)[-1].T          # (n, d)
             be = next(b for b in sim.model.ensembles
                       if b.obj is slam.assomemory.memory)
             if not args.no_voja:
-                scaled_enc = sim.data[mem_encoders][-1]
+                scaled_enc = getter(mem_encoders)[-1]
             else:
                 scaled_enc = be.scaled_encoders
             J = lm_space.vectors @ scaled_enc.T + be.bias
@@ -234,8 +234,8 @@ def main(argv=None):
         extra = args.save_name_extra
         if args.domain_dim != 2:
             extra = "_dim_" + str(args.domain_dim)
-        if backend == "gated":
-            extra = "_backend_gated" + extra
+        if backend in ("gated", "numpy"):
+            extra = "_backend_" + backend + extra
         if device != "cpu":
             extra = "_device_" + device + extra
         if args.approx_vel:

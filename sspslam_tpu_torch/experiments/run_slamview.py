@@ -6,7 +6,7 @@ printed lines of the JAX package's ``experiments/run_slamview.py``, with
 
 The network is ``SLAMViewNetwork`` fed by ``get_slamview_input_functions``,
 stepped by the port's :class:`Simulator` (CUDA graphs on the card).  Not
-ported: ``--plot`` (ROADMAP.md Queue 1 item 3).
+ported: ``--plot`` (ROADMAP.md Queue 1 item 1).
 """
 
 import argparse
@@ -26,7 +26,7 @@ from .common import (DT, add_common_args, decode_output, make_path,
 def main(argv=None):
     parser = argparse.ArgumentParser(
         description="Local-view-cell SSP-SLAM on the port. --plot is not "
-                    "ported yet (ROADMAP.md Queue 1 item 3).",
+                    "ported yet (ROADMAP.md Queue 1 item 1).",
         formatter_class=argparse.ArgumentDefaultsHelpFormatter)
     add_common_args(parser, default_T=100.0)
     parser.add_argument("--n-landmarks", default=10, type=int)
@@ -48,7 +48,7 @@ def main(argv=None):
     args = parser.parse_args(argv)
     if args.plot:
         raise NotImplementedError(
-            "--plot is not ported yet (ROADMAP.md Queue 1 item 3); "
+            "--plot is not ported yet (ROADMAP.md Queue 1 item 1); "
             "--save writes the traces to an npz")
     device = args.device
 

@@ -181,6 +181,17 @@ class PathIntegrationReencode(PathIntegration):
 
         cleanup_fun.hoisted_consts = hoisted
 
+        def _cleanup_np(t, x, consts=None):
+            # the host interpreter's mirror (the JAX package's, on the
+            # hoisted bank)
+            x = np.asarray(x, np.float32)
+            if float(t) % cleanup_dt < 0.01:
+                b = np.asarray((hoisted if consts is None
+                                else consts)["bank"], np.float32)
+                return b[int(np.argmax(b @ x))] - x
+            return np.zeros_like(x)
+        cleanup_fun.np_function = _cleanup_np
+
         with self:
             cleanup = Node(cleanup_fun, size_in=d, size_out=d,
                            label=f"{label}_cleanup")

@@ -16,8 +16,9 @@ takes effect at the next step or graph replay.  (The JAX package offers
 this as an option, ``SSPSLAM_HOIST_*``, for the TPU's on-chip memory; in
 the port it is the only layout.)
 
-Not ported: the NumPy mirrors the JAX package keeps for its host
-interpreter.
+The grid clean-up and both gates carry ``np_function``: a NumPy mirror the
+host interpreter (:class:`nef.reference_backend.NumpyStepper`) calls in
+place of the torch function, with the same hoisted ``consts``.
 """
 
 from __future__ import annotations
@@ -147,6 +148,13 @@ def make_cleanup_fun(ssp_space, method="grid", samples_per_dim=100,
         return newton_polish(x, mlp_point(x, c), c)
 
     cleanup_fun.hoisted_consts = hoisted
+    if method == "grid":
+        def _cleanup_np(x, consts=None):
+            # the host interpreter's mirror: one float32 matvec and argmax
+            b = np.asarray((hoisted if consts is None else consts)["bank"],
+                           np.float32)
+            return b[int(np.argmax(b @ np.asarray(x, np.float32)))]
+        cleanup_fun.np_function = _cleanup_np
     return cleanup_fun, sample_ssps, sample_points
 
 
@@ -169,6 +177,15 @@ def make_update_state_func(update_thres, shift_rate, d):
                            0.0)
 
     update_state_func.hoisted_consts = hoisted
+
+    def _update_state_np(t, x, consts=None):
+        c = hoisted if consts is None else consts
+        pos_est, pi_est = x[:d], x[d:2 * d]
+        if (abs(float(x[-1])) < 1e-3
+                and float(pos_est @ pi_est) > float(c["update_thres"])):
+            return float(c["shift_rate"]) * (pos_est - pi_est)
+        return np.zeros(d, np.float32)
+    update_state_func.np_function = _update_state_np
     return update_state_func
 
 
@@ -277,15 +294,77 @@ def make_auto_recovery_gate_func(update_thres, shift_rate, d, dt=0.001,
     }
     if has_anchor:
         gate.hoisted_consts["anchor_trigger"] = np.float32(anchor_trigger)
+
+    def _gate_np(t, x, s, consts):
+        # the host interpreter's mirror of ``gate``, branch by branch
+        thr, sr = float(consts["update_thres"]), float(consts["shift_rate"])
+        rsr = float(consts["recovery_shift_rate"])
+        pos_est, pi_est = x[:d], x[d:2 * d]
+        recall, err = x[2 * d:3 * d], x[3 * d:4 * d]
+        in_view = abs(float(x[-1])) < 1e-3
+        dot = float(pos_est @ pi_est)
+        agree = dot / (np.linalg.norm(pos_est)
+                       * np.linalg.norm(pi_est) + 1e-9)
+        conclusive = (in_view
+                      and np.linalg.norm(recall) >= float(consts["familiar"]))
+        armed, ema, timer, cons_ema = (float(s[0]), float(s[1]),
+                                       float(s[2]), float(s[3]))
+        if conclusive:
+            ema = (1 - alpha) * ema + alpha * agree
+            value = recall - err
+            cons = float(recall @ value) / float(
+                np.linalg.norm(recall) * np.linalg.norm(value) + 1e-9)
+            cons_ema = (1 - alpha_c) * cons_ema + alpha_c * cons
+        armed = max(armed, float(ema >= float(consts["exit_thres"])))
+        timer = max(timer - 1.0, 0.0)
+        lost = ((ema < float(consts["trigger"])
+                 or cons_ema < float(consts["cons_trigger"]))
+                and conclusive)
+        anchor_seen = False
+        a_ema = float(s[4]) if has_anchor else 1.0
+        if has_anchor:
+            anc_pos, anc_vec = x[4 * d:5 * d], x[5 * d:6 * d]
+            anchor_seen = abs(float(x[-2])) < 1e-3
+            if anchor_seen:
+                bound = np.fft.ifft(np.fft.fft(pi_est)
+                                    * np.fft.fft(anc_vec)).real
+                a_agree = float(bound @ anc_pos) / float(
+                    np.linalg.norm(bound) * np.linalg.norm(anc_pos) + 1e-9)
+                a_ema = (1 - alpha_c) * a_ema + alpha_c * a_agree
+                lost = lost or a_ema < float(consts["anchor_trigger"])
+        if armed > 0 and lost and timer <= 0:
+            timer = R
+            cons_ema = 1.0
+            a_ema = 1.0
+        in_rec = timer > 0
+        out = np.zeros(d + 1, np.float32)
+        rsr_eff = (sr + (rsr - sr) * timer / R) if recovery_decay else rsr
+        if in_view and (dot > thr or in_rec):
+            target = pos_est - pi_est
+            if has_anchor and in_rec and anchor_seen:
+                pose_abs = np.fft.ifft(np.conj(np.fft.fft(anc_vec))
+                                       * np.fft.fft(anc_pos)).real
+                target = pose_abs - pi_est
+            out[:d] = (rsr_eff if in_rec else sr) * target
+        out[d] = 10.0 if in_rec else 0.0
+        state = [armed, ema, timer, cons_ema] + ([a_ema] if has_anchor
+                                                 else [])
+        return out, np.array(state, np.float32)
+
+    gate.np_function = _gate_np
     return gate
 
 
 def _wrap_cleanup_node(clean_up_fun):
     """A clean-up callable as a ``(t, x, consts)`` node function carrying
-    its ``hoisted_consts``."""
+    its ``hoisted_consts`` and, where it has one, its NumPy mirror."""
     def cleanup_node_fn(t, x, consts=None, _f=clean_up_fun):
         return _f(x, consts)
     cleanup_node_fn.hoisted_consts = clean_up_fun.hoisted_consts
+    npf = getattr(clean_up_fun, "np_function", None)
+    if npf is not None:
+        cleanup_node_fn.np_function = (
+            lambda t, x, consts=None, _f=npf: _f(x, consts))
     return cleanup_node_fn
 
 

@@ -1,10 +1,10 @@
 """NEF engine, PyTorch port: declarative graph -> built parameters ->
 stepped simulation.
 
-The graph, distributions, builder, processes, executor, ``Simulator`` and
-``ClosedLoopSession`` of :mod:`sspslam_tpu.nef`.  Not ported: the export
-bundle (``ServingModel``, ``save_bundle``) and the NumPy reference
-interpreter.
+The graph, distributions, builder, processes, executor, ``Simulator``,
+``ClosedLoopSession``, the serving bundle (``save_bundle``,
+``ServingModel``) and the NumPy reference interpreter
+(``reference_backend.NumpyStepper``) of :mod:`sspslam_tpu.nef`.
 """
 
 from ..ops.neurons import (LIF, LIFRate, LoihiLIF, QuantizedLIF,
@@ -16,6 +16,7 @@ from .distributions import (Choice, CosineSimilarity, Distribution,
                             Exponential, Rd, ScatteredHypersphere, Sobol,
                             SSPMixedEval, SSPSobol, Uniform,
                             UniformHypersphere)
+from .export import ServingModel, save_bundle
 from .graph import (BatchedConnection, Connection, Default, Ensemble,
                     EnsembleArray, LearningRule, Network, Neurons, Node,
                     ObjView, PES, Probe, Voja)
@@ -32,5 +33,5 @@ __all__ = [
     "BatchedConnection", "Connection", "Default", "Ensemble", "EnsembleArray",
     "LearningRule", "Network", "Neurons", "Node", "ObjView", "PES", "Probe",
     "Voja", "TimeTable", "WhiteSignal", "clamp_table", "white_signal",
-    "ClosedLoopSession", "Simulator",
+    "ClosedLoopSession", "Simulator", "ServingModel", "save_bundle",
 ]

@@ -1,21 +1,24 @@
-"""A built model's resource summary: neurons, weight and state memory and
-the multiply-adds of one step, per ensemble group.
+"""A built model's resource summary (neurons, weight and state memory and
+the multiply-adds of one step, per ensemble group) and a trace context.
 
-Port of ``model_utilization_summary`` and ``print_utilization_summary`` of
-:mod:`sspslam_tpu.utils.profiling` (the counterpart of the reference's Loihi
-utilization printout).  Host-only arithmetic on the built shapes; the JAX
-module's TPU on-chip-memory share and its ``jax.profiler`` wrapper have no
-counterpart here (on the card, ``torch.profiler`` traces a run).
+Port of :mod:`sspslam_tpu.utils.profiling`: ``model_utilization_summary``
+and ``print_utilization_summary`` (the counterpart of the reference's
+Loihi utilization printout; host-only arithmetic on the built shapes, with
+no counterpart of the JAX module's TPU on-chip-memory share) and
+``trace_run``, a ``torch.profiler`` context in place of the JAX module's
+``jax.profiler`` one.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import List
 
 import numpy as np
 import torch
 
-__all__ = ["model_utilization_summary", "print_utilization_summary"]
+__all__ = ["model_utilization_summary", "print_utilization_summary",
+           "trace_run"]
 
 
 def _size(x) -> int:
@@ -68,3 +71,20 @@ def print_utilization_summary(model, file=None):
               f"{kib:>8.0f} KiB  "
               f"{r['flops_per_step'] / 1e3:>8.0f} kFLOP/step", file=file)
     return rows
+
+
+@contextlib.contextmanager
+def trace_run(logdir: str):
+    """``torch.profiler`` trace context: ``with trace_run('/tmp/trace'):
+    sim.run(...)`` writes a Chrome trace (``<host>.<pid>.<ms>.pt.trace.json``)
+    into ``logdir``, for Perfetto, ``chrome://tracing`` or TensorBoard.
+    Traces the host and, where there is one, the CUDA device; yields the
+    profiler (``key_averages()`` sums the events by name)."""
+    from torch.profiler import (ProfilerActivity, profile,
+                                tensorboard_trace_handler)
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities,
+                 on_trace_ready=tensorboard_trace_handler(logdir)) as prof:
+        yield prof

@@ -150,17 +150,16 @@ def test_top_level_has_every_reference_name():
                                    networks)
 
 
-#: reference names the port does not carry yet: the export bundle
-#: (ROADMAP.md Queue 1, item 1)
-NOT_PORTED = {"nef": {"ServingModel", "save_bundle"}, "train": set()}
+#: reference names the port does not carry yet (none since the serving
+#: bundle, ``ServingModel`` and ``save_bundle``, was ported)
+NOT_PORTED = {"nef": set(), "train": set()}
 
 
 @pytest.mark.parametrize("module", ["nef", "train"])
 def test_module_has_every_reference_name(module):
     """Every name in ``sspslam_tpu.<module>.__all__`` exists on
-    ``sspslam_tpu_torch.<module>`` and is in its ``__all__``, except the
-    export bundle (``ServingModel``, ``save_bundle``), which is not ported
-    yet."""
+    ``sspslam_tpu_torch.<module>`` and is in its ``__all__``, the serving
+    bundle's ``ServingModel`` and ``save_bundle`` included."""
     ref = importlib.import_module(f"sspslam_tpu.{module}")
     port = importlib.import_module(f"sspslam_tpu_torch.{module}")
     want = set(ref.__all__) - NOT_PORTED[module]

@@ -454,7 +454,7 @@ def test_run_slam_cli_matches_jax(tmp_path):
 
 def test_run_slam_plot_not_ported():
     from sspslam_tpu_torch.experiments import run_slam
-    with pytest.raises(NotImplementedError, match="item 3"):
+    with pytest.raises(NotImplementedError, match="item 1"):
         run_slam.main(["--plot", "--device", "cpu"])
 
 

@@ -379,10 +379,13 @@ def test_clis_match_jax(tmp_path):
 
 
 def test_run_slamview_plot_and_numpy_backend_not_ported():
+    """--plot raises in run_slamview and, with the numpy and cpu backends
+    (ported since: tests/test_torch_reference_backend.py runs them), in
+    run_slam, before any model is built."""
     from sspslam_tpu_torch.experiments import run_slam, run_slamview
-    with pytest.raises(NotImplementedError, match="item 3"):
+    with pytest.raises(NotImplementedError, match="item 1"):
         run_slamview.main(["--plot", "--device", "cpu"])
     for backend in ("numpy", "cpu"):
-        with pytest.raises(NotImplementedError,
-                           match="--device cpu.*item 2"):
-            run_slam.main(["--backend", backend, "--device", "cpu"])
+        with pytest.raises(NotImplementedError, match="--plot.*item 1"):
+            run_slam.main(["--backend", backend, "--device", "cpu",
+                           "--plot"])
