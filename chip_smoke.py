@@ -134,9 +134,9 @@ result line):
    sspslam_tpu_torch.experiments.scaled_slam --T 40 --seeds 0,1
    --param-dtype int8 --no-pi-control`` (ssp_dim 201 in 3-D, 101 VCOs x 800
    LIF, memory 10,000, 100 landmarks, 2 batched episodes) as a subprocess:
-   exit 0 and median_err_slam <= 0.4; then its ``--dp-sweep 1,2,8`` at
-   T = 10, one row per B.  The VCO kernel launches 0 times over phases
-   19-21;
+   exit 0 and median_err_slam <= 0.4 (``--save``: the npz phase 30
+   re-decodes); then its ``--dp-sweep 1,2,8`` at T = 4 (``--limit 0.3``),
+   one row per B.  The VCO kernel launches 0 times over phases 19-21;
 22. training at the PI fast path's full width (``train_pathint``'s model
    and worlds: ssp_dim 97, 49 VCOs x 800 LIFRate, 600 steps, segments of
    100): the gradient of its loss with respect to the recurrent decoders
@@ -154,9 +154,11 @@ result line):
    5 fit steps as a subprocess (its loss falls; seconds per fit step);
 23. ``train_slam`` at the flagship width (ssp_dim 97, 800 per VCO, memory
    970, 100 per circular-convolution dimension; T = 0.6 s, 2 meta-steps)
-   as a subprocess: its losses, first meta-gradient and tuned scalars
-   finite, the scalars non-negative, seconds per meta-step, peak memory
-   (the gate has not corrected by then, so the meta-gradient is 0);
+   as a subprocess, run with the untimed children: its losses, first
+   meta-gradient and tuned scalars finite, the scalars non-negative,
+   seconds per meta-step (printed; taken beside the other children), peak
+   memory (the gate has not corrected by then, so the meta-gradient is
+   0);
    ``train_slam`` at a tiny width and T = 0.5 s on the card and on the
    CPU: the first meta-gradients nonzero and within 5e-3 of each other;
    ``tune_loop_closure``'s in-place configuration of a built simulator
@@ -191,21 +193,53 @@ result line):
    functions equal to their NumPy fallbacks (tests/test_native.py's
    tolerances); ``trace_run`` around 100 replayed SLAM steps writes a
    Chrome trace naming the step's kernels.  The VCO kernel launches 0
-   times over phases 25-27.
+   times over phases 25-27;
+28. loop closure and the kidnap: ``validate_loop_closure --tuned`` at the
+   flagship protocol (ssp_dim 97, 800 per VCO, memory 970, 100 per
+   convolution dimension, 50 landmarks, view radius 0.2, T = 200 s) held
+   to tests/test_headline.py's bars (SLAM median < 0.08, last-quarter <
+   0.12, PI > 3x SLAM on both); ``kidnapped_robot --in-model`` at
+   tests/test_kidnap_regression.py's flags held to its bars (jump > 0.5,
+   no false trigger, detection within 27 s, adaptive post-kidnap error
+   below the strict gate's, strict > 0.5); the flagship scripted
+   ``kidnapped_robot --T 20 --recovery-window 4 --dump`` and
+   ``check_anchor_enters`` on its npz (finite); in this process, the
+   flagship three-model program with the recovery window written in
+   place at step 300 and restored at 600: graph replay against the eager
+   step over 1,000 steps (<= 1e-6), no recapture, the same params
+   tensors, and a run without the window differing after step 300;
+29. maps: ``map_merge --T-explore 10 --T-test 6 --test-limit 0.4
+   --eval-gate auto_recovery`` and ``live_merge --T 10 --exchange-s 2
+   --limit 0.5`` at the flagship widths, every condition and arm finite
+   (at the default limit these short paths stand still); in this process
+   the merge of two flagship maps on the card against the formula on the
+   host (0) and injected in place, and one live exchange of two flagship
+   batched episodes against A + B - M_prev (0) followed by 1,000 replayed
+   batched steps against eager ones (<= 1e-6);
+30. analyses: ``gate_fidelity --T 2`` at the flagship widths (engaged
+   fractions), ``bf16_drift --T 10`` (trajectory cosine, both steps/s),
+   ``scale_study --dims 97,193 --steps 2000 --segment-steps 1000 --reps
+   1`` (MFLOP/step at d = 97 equal to the model summary of the flagship
+   model built here) and ``redecode_scaled`` on phase 21's ``--save`` npz
+   (polished median <= grid median).  The VCO kernel launches 0 times
+   over phases 28-30 and their children.
 
-Every CLI subprocess (phases 10, 13, 18, 21, 22, 23, 24, 25 and 26) runs
-its module as ``python -m`` does, through runpy, and then prints the VCO
-kernel's launches in that process, which must be 0.  The children whose
-times the smoke does not report (phases 10, 13 and 18, 23's sweep and
-tiny ``train_slam`` pair, 25's ``serving_probe`` and 26's ``run_slam
---backend numpy``) run together after phase 17, while the smoke's own
-process waits.
+Every CLI subprocess (phases 10, 13, 18, 21-26 and 28-30) runs its module
+as ``python -m`` does, through runpy, and then prints the VCO kernel's
+launches in that process, which must be 0.  The children whose times the
+smoke does not report as readings (phases 10, 13 and 18, 23's sweep and
+three ``train_slam`` runs, 25's ``serving_probe``, 26's ``run_slam
+--backend numpy`` and the CLIs of phases 28-30 but ``check_anchor_enters`` and
+``redecode_scaled``, which read files phases 21 and 28 write) run together
+after phase 17, while the smoke's own process runs the in-process checks
+of phases 28-30, none of which is timed.
 
-The last nine lines of standard output are one JSON object of the
+The last ten lines of standard output are one JSON object of the
 Simulator's numbers, one of the SLAM numbers, one of phases 14-18
 (``family``), one of phases 19-21 (``scaled``), one of phases 22-24
-(``train``), one of phases 25-27 (``serving``), the card's name and power
-limit, one JSON object describing the kernel, and the result line.
+(``train``), one of phases 25-27 (``serving``), one of phases 28-30
+(``clis``), the card's name and power limit, one JSON object describing
+the kernel, and the result line.
 
 To compare the kernel of two checkouts on one card, time each in turns
 within one command (the other commit unpacked into a git-ignored
@@ -982,14 +1016,18 @@ def counted_result(child, end):
     return stdout, end - t0, launches
 
 
-def run_together(jobs, timeout=600, envs=None):
+def start_together(jobs, envs=None):
     """``jobs`` ({key: (name, *args)}) started at once by
-    ``start_counted`` (``envs``: {key: environment variables}) and waited
-    for together (each killed if the whole takes over ``timeout`` s or
-    another fails first); {key: counted_result}, each child's lines logged
-    under its key."""
-    children = {key: (key,) + start_counted(
+    ``start_counted`` (``envs``: {key: environment variables}); returns
+    the children for ``wait_together``."""
+    return {key: (key,) + start_counted(
         *job, env=(envs or {}).get(key))[1:] for key, job in jobs.items()}
+
+
+def wait_together(children, timeout):
+    """Children of ``start_together`` waited for together (each killed if
+    the whole takes over ``timeout`` s from now or another fails first);
+    {key: counted_result}, each child's lines logged under its key."""
     results = {}
     try:
         deadline = time.perf_counter() + timeout
@@ -1002,12 +1040,23 @@ def run_together(jobs, timeout=600, envs=None):
                                      f"{timeout} s: "
                                      f"{sorted(set(children) - set(results))}")
             time.sleep(0.1)
-        return {key: results[key] for key in jobs}
+        return {key: results[key] for key in children}
     finally:
-        for _, proc, *_ in children.values():
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
+        stop_children(children)
+
+
+def stop_children(children):
+    """Kill every child of ``start_together`` that still runs."""
+    for _, proc, *_ in children.values():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def run_together(jobs, timeout=600, envs=None):
+    """``jobs`` started at once and waited for together
+    (``start_together``, ``wait_together``)."""
+    return wait_together(start_together(jobs, envs), timeout)
 
 
 def run_counted(name, *args, timeout=600):
@@ -1031,13 +1080,13 @@ def cli_errors(name, stdout, seconds, launches):
             "seconds": seconds, "vco_scan_launches": launches}
 
 
-def untimed_children():
-    """Phases 10, 13 and 18, 23's sweep and tiny ``train_slam`` pair,
-    25's ``serving_probe`` and 26's ``run_slam --backend numpy``: the CLI
-    children whose times the smoke does not report, run together while
-    this process waits; {key: counted_result}."""
-    t0 = time.perf_counter()
-    children = run_together({
+def untimed_jobs():
+    """Phases 10, 13 and 18, 23's ``train_slam`` runs and sweep, 25's
+    ``serving_probe`` and 26's ``run_slam --backend numpy``: the CLI
+    children whose times the smoke does not report as readings (they run
+    beside one another); ({key: (name, *args)}, {key: environment
+    variables})."""
+    jobs = {
         "run_pathint": ("run_pathint",),
         "run_slam": ("run_slam", "--T", "20"),
         "run_slamview": ("run_slamview", "--T", "20"),
@@ -1046,14 +1095,34 @@ def untimed_children():
         "train_slam_meta_cuda": ("train_slam", *META_ARGS),
         "train_slam_meta_cpu": ("train_slam", *META_ARGS, "--device", "cpu"),
         "serving_probe": ("serving_probe", *SERVING_PROBE_ARGS),
-        "run_slam_numpy": ("run_slam", *NUMPY_SLAM_ARGS)},
-        timeout=900, envs={
-            "train_slam_meta_cuda": META_ENV,
+        "run_slam_numpy": ("run_slam", *NUMPY_SLAM_ARGS),
+        "train_slam": ("train_slam", *SLAM_TRAIN_ARGS)}
+    envs = {"train_slam_meta_cuda": META_ENV,
             "train_slam_meta_cpu": dict(META_ENV, OMP_NUM_THREADS="1"),
-            "run_slam_numpy": {"OMP_NUM_THREADS": "1"}})
-    log(f"{len(children)} CLI children together: "
-        f"{time.perf_counter() - t0:.1f} s")
-    return children
+            "run_slam_numpy": {"OMP_NUM_THREADS": "1"}}
+    return jobs, envs
+
+
+def children_and_checks(vco, work):
+    """``untimed_jobs``' children and phases 28-30's CLIs
+    (``new_cli_jobs``) run together after phase 17, while this process
+    runs phases 28-30's own checks, none of them timed
+    (``recovery_schedule``, ``maps_in_process``, ``flagship_mflop``);
+    ``work`` is the directory the CLIs write their files into.  Returns
+    ({key: counted_result}, the three checks' results)."""
+    jobs, envs = untimed_jobs()
+    t0 = time.perf_counter()
+    pending = start_together({**jobs, **new_cli_jobs(work)}, envs)
+    try:
+        checks = (recovery_schedule(vco), maps_in_process(vco),
+                  flagship_mflop(vco))
+        children = wait_together(pending, timeout=1000)
+    except BaseException:
+        stop_children(pending)
+        raise
+    log(f"{len(children)} CLI children together, beside phases 28-30's "
+        f"checks: {time.perf_counter() - t0:.1f} s")
+    return children, checks
 
 
 def replay_vs_eager(sim, probe, what):
@@ -1801,8 +1870,9 @@ def batched_episodes(space, vco):
 
 SCALED_ARGS = ("--T", "40", "--seeds", "0,1", "--param-dtype", "int8",
                "--no-pi-control", "--table-cache", "")
-SWEEP_ARGS = ("--T", "10", "--seeds", "0", "--no-pi-control",
-              "--table-cache", "", "--dp-sweep", "1,2,8")
+# the --dp-sweep rows are throughput only: a 4 s world (T x limit >= 1)
+SWEEP_ARGS = ("--T", "4", "--limit", "0.3", "--seeds", "0",
+              "--no-pi-control", "--table-cache", "", "--dp-sweep", "1,2,8")
 
 
 def last_json(stdout):
@@ -1811,14 +1881,16 @@ def last_json(stdout):
                            if line.startswith('{"metric"')))
 
 
-def scaled_slam():
+def scaled_slam(work):
     """Phase 21: the reference's second bar, ``scaled_slam --T 40 --seeds
     0,1 --param-dtype int8 --no-pi-control`` (ssp_dim 201 in 3-D, 101
     VCOs x 800 LIF, memory 10,000, 100 landmarks, 2 batched episodes), as
-    a counted child: exit 0, median_err_slam <= SCALED_GATE; then its
-    --dp-sweep 1,2,8 at T = 10 (one row per B)."""
-    stdout, seconds, launches = run_counted("scaled_slam", *SCALED_ARGS,
-                                            timeout=900)
+    a counted child: exit 0, median_err_slam <= SCALED_GATE, its npz
+    saved into ``work`` (phase 30 re-decodes it); then its --dp-sweep
+    1,2,8 at T = 4 (one row per B)."""
+    stdout, seconds, launches = run_counted(
+        "scaled_slam", *SCALED_ARGS, "--save", "--save-dir", work,
+        timeout=900)
     res = last_json(stdout)
     med = res["median_err_slam"]
     log(f"scaled_slam int8: exit 0 in {seconds:.1f} s; median_err_slam "
@@ -2194,14 +2266,15 @@ def train_pathint_phase(vco):
 
 
 def train_slam_phase(vco, children):
-    """Phase 23: ``train_slam`` at the flagship width (ssp_dim 97, 800 per
-    VCO, memory 970, 100 per circular-convolution dimension) as a counted
-    child, depth cut (SLAM_TRAIN_ARGS): its losses and first meta-gradient
-    finite, its tuned scalars finite and non-negative; ``tune_in_place``.
-    From ``children`` (counted results run with phase 18's): train_slam's
-    first meta-gradient at META_ARGS on the card against the CPU's,
-    nonzero and within META_GRAD_TOL; ``tune_loop_closure`` (TUNE_ARGS):
-    8 finite rows."""
+    """Phase 23, from ``children`` (counted results run with phase 18's):
+    ``train_slam`` at the flagship width (ssp_dim 97, 800 per VCO, memory
+    970, 100 per circular-convolution dimension), depth cut
+    (SLAM_TRAIN_ARGS): its losses and first meta-gradient finite, its
+    tuned scalars finite and non-negative (its seconds per meta-step are
+    printed, taken beside the other children); train_slam's first
+    meta-gradient at META_ARGS on the card against the CPU's, nonzero and
+    within META_GRAD_TOL; ``tune_loop_closure`` (TUNE_ARGS): 8 finite
+    rows; and ``tune_in_place``."""
     import ast
     meta = {dev: ast.literal_eval(cli_line(
         children[f"train_slam_meta_{dev}"][0], "first meta-gradient:")
@@ -2217,8 +2290,7 @@ def train_slam_phase(vco, children):
             and meta_err <= META_GRAD_TOL):
         raise AssertionError(f"train_slam meta-gradient: card {meta['cuda']}"
                              f", CPU {meta['cpu']}")
-    stdout, seconds, launches = run_counted("train_slam", *SLAM_TRAIN_ARGS,
-                                            timeout=900)
+    stdout, seconds, launches = children["train_slam"]
     tuned, grad = (ast.literal_eval(cli_line(stdout, p).split(":", 1)[1]
                                     .strip())
                    for p in ("tuned:", "first meta-gradient:"))
@@ -2231,8 +2303,8 @@ def train_slam_phase(vco, children):
             for p in ("swept defaults", "gradient-tuned:")]
     log(f"train_slam: exit 0 in {seconds:.1f} s; loss {losses[0]} -> "
         f"{losses[1]}; first meta-gradient {grad}; tuned {tuned}; "
-        f"{fit_s / n_fit:.1f} s per meta-step; peak {peak} MiB; errors "
-        f"{errs}")
+        f"{fit_s / n_fit:.1f} s per meta-step (beside the other children); "
+        f"peak {peak} MiB; errors {errs}")
     if not (len(tuned) == 3 and all(np.isfinite(v) and v >= 0
                                     for v in tuned.values())
             and grad.keys() == tuned.keys()
@@ -2739,6 +2811,442 @@ def host_phase(sim, vco):
 
 
 
+# ---------------------------------------------------------------------------
+# Phases 28-30: the loop-closure, kidnap, map-merging and analysis CLIs
+# ---------------------------------------------------------------------------
+# 28. validate_loop_closure --tuned at its defaults: the flagship width and
+# VALIDATION.md's protocol (ssp_dim 97, 800 per VCO, memory 970, 100 per
+# convolution dimension, 50 landmarks, view radius 0.2, T = 200 s), held to
+# tests/test_headline.py's bars
+HEADLINE_ARGS = ("--tuned",)
+HEADLINE_SLAM_MEDIAN = 0.08
+HEADLINE_SLAM_LASTQ = 0.12
+HEADLINE_SEPARATION = 3.0
+# kidnapped_robot --in-model at tests/test_kidnap_regression.py's flags,
+# held to its bars
+KIDNAP_ARGS = ("--in-model", "--T", "60", "--ssp-dim", "55",
+               "--pi-n-neurons", "250", "--mem-n-neurons", "500",
+               "--circonv-n-neurons", "50", "--n-landmarks", "30",
+               "--view-rad", "0.3", "--seed", "0")
+KIDNAP_MIN_JUMP = 0.5
+KIDNAP_DETECT_S = 27.0
+KIDNAP_STRICT_LOST = 0.5
+# the scripted schedule at the flagship width, dumped for
+# check_anchor_enters, which queries the kidnap and the window's end
+DUMP_ARGS = ("--T", "20", "--recovery-window", "4")
+DUMP_ENTERS = ("10.0", "14.0")
+# the in-process schedule: recovery entered at step 300, left at 600, of
+# 1,000 steps
+FLIP_IN, FLIP_OUT, FLIP_END = 300, 600, 1_000
+# 29. the maps at the flagship widths.  A WhiteSignal path of T seconds
+# needs a frequency bin 1/T under its limit: at the CLIs' default --limit
+# 0.1 the 6 s test path stands still in one corner (and the JAX CLI, like
+# the port's, then fails formatting the unvisited half's None), as do
+# live_merge's 6.7 s and 3.3 s phases, so both move faster here
+MERGE_ARGS = ("--T-explore", "10", "--T-test", "6", "--test-limit", "0.4",
+              "--eval-gate", "auto_recovery")
+LIVE_ARGS = ("--T", "10", "--exchange-s", "2", "--limit", "0.5")
+MAP_STEPS = 1_000        # steps each in-process map is learned over
+# 30. the analyses
+FLAGSHIP_WIDTHS = ("--ssp-dim", str(SSP_DIM), "--pi-n-neurons",
+                   str(N_NEURONS), "--mem-n-neurons", "970",
+                   "--circonv-n-neurons", "100")
+GATE_FIDELITY_ARGS = ("--T", "2", *FLAGSHIP_WIDTHS)
+BF16_ARGS = ("--T", "10")
+SCALE_ARGS = ("--dims", "97,193", "--steps", "2000", "--segment-steps",
+              "1000", "--reps", "1")
+
+def new_cli_jobs(work):
+    """Phases 28-30's CLI children (their times are not reported): run
+    with the untimed children, ``children_and_checks``; the kidnap dump is
+    written into the directory ``work``."""
+    dump = os.path.join(work, "kidnap_dump.npz")
+    return {
+        "validate_loop_closure": ("validate_loop_closure", *HEADLINE_ARGS),
+        "kidnapped_in_model": ("kidnapped_robot", *KIDNAP_ARGS),
+        "kidnapped_dump": ("kidnapped_robot", *DUMP_ARGS, "--dump", dump),
+        "map_merge": ("map_merge", *MERGE_ARGS),
+        "live_merge": ("live_merge", *LIVE_ARGS),
+        "gate_fidelity": ("gate_fidelity", *GATE_FIDELITY_ARGS),
+        "bf16_drift": ("bf16_drift", *BF16_ARGS),
+        "scale_study": ("scale_study", *SCALE_ARGS)}
+
+
+def _finite(obj, what):
+    """Every number in a CLI's JSON value is finite (None allowed)."""
+    vals = []
+
+    def walk(x):
+        if isinstance(x, dict):
+            for v in x.values():
+                walk(v)
+        elif isinstance(x, list):
+            for v in x:
+                walk(v)
+        elif isinstance(x, (int, float)) and not isinstance(x, bool):
+            vals.append(float(x))
+    walk(obj)
+    if not vals or not np.all(np.isfinite(vals)):
+        raise AssertionError(f"{what} printed non-finite numbers: {obj}")
+
+
+def _json_line(stdout):
+    return json.loads(next(line for line in reversed(stdout.splitlines())
+                           if line.startswith("{")))
+
+
+def recovery_schedule(vco):
+    """Phase 28, in process: kidnapped_robot's three models at the flagship
+    width (its defaults, a 1 s world), the scripted recovery window entered
+    at step FLIP_IN and left at FLIP_OUT by in-place writes, FLIP_END
+    steps: graph replay against the eager step through both flips (<=
+    REPLAY_TOL on every probe), the graphs kept (no recapture), the params
+    leaves the same tensors; and a replayed run without the window differs
+    from the one with it (the writes reached the captured graphs)."""
+    from sspslam_tpu_torch.experiments import kidnapped_robot as pk
+    from sspslam_tpu_torch.nef import Simulator
+    from sspslam_tpu_torch.nef.simulator import _flatten
+    vco.vco_scan.launches = 0
+    args = pk.parse_args(["--T", "1", "--limit", "4", "--min-jump", "0.4"])
+    world = pk.make_world(args)
+    net, handles = pk.build_network(args, world)
+    t0 = time.perf_counter()
+    sim = Simulator(net, seed=args.seed, device="cuda")
+    build_s = time.perf_counter() - t0
+    enter, leave, _ = pk.recovery_controls(sim, handles["adaptive"], args)
+    leaves = [(id(x), x.data_ptr()) for x in _flatten(sim.params)]
+    dense = [bp for bp in sim.model.probes if not bp.sparse]
+    sim.preload_inputs(FLIP_END)
+    # probe buffers for the longest segment, so no segment reallocates them
+    # (which would drop the graphs)
+    sim.compile(FLIP_END)
+
+    def run(eager, window):
+        sim.reset(keep_inputs=True)
+        sim._eager = eager
+        sim.run_steps(FLIP_IN)
+        graphs = dict(sim._graphs)
+        if window:
+            enter()
+        sim.run_steps(FLIP_OUT - FLIP_IN)
+        if window:
+            leave()
+        sim.run_steps(FLIP_END - FLIP_OUT)
+        sim.sync()
+        if not eager and any(sim._graphs.get(k) is not g
+                             for k, g in graphs.items()):
+            raise AssertionError("the recovery writes recaptured a graph")
+        return {bp.index: sim.data[bp.obj] for bp in dense}
+
+    replay = run(False, True)
+    eager = run(True, True)
+    sim._eager = False
+    plain = run(False, False)
+    if [(id(x), x.data_ptr()) for x in _flatten(sim.params)] != leaves:
+        raise AssertionError("the recovery writes replaced a params leaf")
+    err = max(float(np.abs(replay[k] - eager[k]).max()) for k in replay)
+    a = replay[next(bp.index for bp in dense
+                    if bp.obj is handles["probes"]["adaptive"])]
+    b = plain[next(bp.index for bp in dense
+                   if bp.obj is handles["probes"]["adaptive"])]
+    moved = float(np.abs(a[FLIP_IN:] - b[FLIP_IN:]).max())
+    before = float(np.abs(a[:FLIP_IN] - b[:FLIP_IN]).max())
+    log(f"kidnapped_robot schedule in process (flagship, {FLIP_END} steps, "
+        f"window {FLIP_IN}-{FLIP_OUT}; build {build_s:.1f} s): replay vs "
+        f"eager through both flips, every probe: max-abs {err:.3e} (tol "
+        f"{REPLAY_TOL}); adaptive PI with vs without the window: "
+        f"{before:.3e} before step {FLIP_IN}, {moved:.3e} after")
+    if not (all(np.all(np.isfinite(v)) for v in replay.values())
+            and err <= REPLAY_TOL):
+        raise AssertionError(f"recovery schedule: replay vs eager {err}")
+    if not (before == 0.0 and moved > 0.0):
+        raise AssertionError("the recovery window did not reach the "
+                             f"graphs: {before}, {moved}")
+    out = {"replay_vs_eager": err, "window_moved_adaptive": moved,
+           "build_s": build_s, "vco_scan_launches": vco.vco_scan.launches}
+    del sim
+    torch.cuda.empty_cache()
+    if out["vco_scan_launches"] != 0:
+        raise AssertionError("the recovery schedule launched vco_scan")
+    return out
+
+
+def loop_closure_phase(children, schedule, work):
+    """Phase 28: the headline (validate_loop_closure --tuned at the
+    flagship protocol) against tests/test_headline.py's bars; the kidnap
+    (--in-model at tests/test_kidnap_regression.py's flags) against its
+    bars; the flagship scripted kidnap with --dump and check_anchor_enters
+    on its npz in ``work`` (finite); ``schedule``: recovery_schedule's
+    result."""
+    stdout, seconds, launches = children["validate_loop_closure"]
+    r = _json_line(stdout)
+    _finite(r, "validate_loop_closure")
+    log(f"validate_loop_closure --tuned (flagship, T = {r['T']} s): "
+        f"exit 0 in {seconds:.1f} s; SLAM median {r['slam_median']}, "
+        f"last-q {r['slam_lastq']}, final {r['slam_final']}; PI median "
+        f"{r['pi_median']}, last-q {r['pi_lastq']}, final {r['pi_final']} "
+        f"(bars: SLAM < {HEADLINE_SLAM_MEDIAN} / < {HEADLINE_SLAM_LASTQ}, "
+        f"PI > {HEADLINE_SEPARATION} x SLAM)")
+    steps = next(l for l in stdout.splitlines() if l.startswith("sim:"))
+    if not (r["T"] == 200.0 and r["ssp_dim"] == SSP_DIM
+            and r["slam_median"] < HEADLINE_SLAM_MEDIAN
+            and r["slam_lastq"] < HEADLINE_SLAM_LASTQ
+            and r["pi_median"] > HEADLINE_SEPARATION * r["slam_median"]
+            and r["pi_lastq"] > HEADLINE_SEPARATION * r["slam_lastq"]):
+        raise AssertionError(f"validate_loop_closure misses the headline "
+                             f"bars: {r}")
+    out = {"headline": dict(r, seconds=seconds, sim_line=steps,
+                            vco_scan_launches=launches)}
+
+    stdout, seconds, launches = children["kidnapped_in_model"]
+    k = _json_line(stdout)
+    _finite({key: v for key, v in k.items() if key != "auto"}, "kidnap")
+    auto = k["auto"]
+    log(f"kidnapped_robot --in-model (test_kidnap_regression.py's flags): "
+        f"exit 0 in {seconds:.1f} s; jump {k['jump']}, false triggers "
+        f"{auto['false_triggers']}, detect {auto['detect_s']} s; post_err "
+        f"adaptive {k['adaptive']['post_err']}, strict "
+        f"{k['strict']['post_err']}, pi_only {k['pi_only']['post_err']}")
+    if not (k["jump"] > KIDNAP_MIN_JUMP and auto["false_triggers"] == 0
+            and auto["detect_s"] is not None
+            and auto["detect_s"] <= KIDNAP_DETECT_S
+            and k["adaptive"]["post_err"] < k["strict"]["post_err"]
+            and k["strict"]["post_err"] > KIDNAP_STRICT_LOST):
+        raise AssertionError(f"kidnapped_robot --in-model misses the "
+                             f"regression bars: {k}")
+    out["kidnap_in_model"] = dict(k, seconds=seconds,
+                                  vco_scan_launches=launches)
+
+    stdout, seconds, launches = children["kidnapped_dump"]
+    s = _json_line(stdout)
+    _finite(s, "kidnapped_robot --dump")
+    dump = os.path.join(work, "kidnap_dump.npz")
+    cout, cseconds, claunches = run_counted(
+        "check_anchor_enters", dump, "--seed", "0", "--enters",
+        *DUMP_ENTERS)
+    rows = [[float(x.split("=")[1].rstrip("s:")) for x in l.split()[1:]]
+            for l in cout.splitlines() if l.startswith("enter t=")]
+    if len(rows) != len(DUMP_ENTERS) or not np.all(np.isfinite(rows)):
+        raise AssertionError(f"check_anchor_enters printed {cout!r}")
+    log(f"kidnapped_robot scripted (flagship, T = 20 s, window 4 s): exit 0 "
+        f"in {seconds:.1f} s; jump {s['jump']}; post_err adaptive "
+        f"{s['adaptive']['post_err']}, strict {s['strict']['post_err']}; "
+        f"check_anchor_enters at {', '.join(DUMP_ENTERS)} s (t, err(at), "
+        f"max, median): {rows}")
+    out["kidnap_scripted"] = dict(s, seconds=seconds,
+                                  vco_scan_launches=launches,
+                                  check_anchor_enters=rows,
+                                  check_anchor_enters_vco_scan_launches=
+                                  claunches)
+    out["schedule"] = schedule
+    return out
+
+
+def maps_phase(children, in_process):
+    """Phase 29: map_merge and live_merge at the flagship widths (every
+    condition and arm finite); ``in_process``: maps_in_process's
+    result."""
+    out = {"in_process": in_process}
+    stdout, seconds, launches = children["map_merge"]
+    m = _json_line(stdout)
+    for cond in ("merged", "agent_A_only", "agent_B_only", "empty"):
+        _finite(m[cond], f"map_merge {cond}")
+    log(f"map_merge (flagship, explore 10 s, test 6 s at limit 0.4, "
+        f"auto_recovery): "
+        f"exit 0 in {seconds:.1f} s; median merged {m['merged']['median']}, "
+        f"A only {m['agent_A_only']['median']}, B only "
+        f"{m['agent_B_only']['median']}, empty {m['empty']['median']}")
+    out["map_merge"] = dict(m, seconds=seconds, vco_scan_launches=launches)
+    stdout, seconds, launches = children["live_merge"]
+    lm = _json_line(stdout)
+    for arm in ("exchange", "no_exchange"):
+        for agent in ("agent_A", "agent_B"):
+            _finite(lm["results"][arm][agent], f"live_merge {arm} {agent}")
+    log(f"live_merge (flagship, T = 10 s, limit 0.5, exchange every 2 s): "
+        f"exit 0 in "
+        f"{seconds:.1f} s; crossover median with / without exchange: "
+        + ", ".join(f"{a} {lm['results']['exchange'][a]['cross_median']} / "
+                    f"{lm['results']['no_exchange'][a]['cross_median']}"
+                    for a in ("agent_A", "agent_B")))
+    out["live_merge"] = dict(lm, seconds=seconds, vco_scan_launches=launches)
+    return out
+
+
+def maps_in_process(vco):
+    """Phase 29 in process: the merge of two learned maps of map_merge's
+    flagship agent on the card against the JAX package's formula on the
+    host (0), injected in place; one live exchange of live_merge's
+    flagship batched episodes against A + B - M_prev (0) in both episodes,
+    then MAP_STEPS replayed batched steps against eager steps from the
+    exchanged state (<= REPLAY_TOL)."""
+    from sspslam_tpu_torch.experiments import live_merge as pl
+    from sspslam_tpu_torch.experiments import map_merge as pm
+    from sspslam_tpu_torch.experiments.common import learned_base
+    from sspslam_tpu_torch.nef.simulator import _flatten
+    from sspslam_tpu_torch.parallel import BatchedEpisodes
+    vco.vco_scan.launches = 0
+    args = pm.parse_args(["--T-explore", "2", "--T-test", "1"])
+    world = pm.make_worlds(args)
+    sim, _, _ = pm.build_program(args, world, world["paths"][0],
+                                 world["vels"][0])
+    sim.preload_inputs(2 * MAP_STEPS)
+    base = learned_base(sim)
+    sim.run_steps(MAP_STEPS)
+    la = {k: v.clone() for k, v in sim.state["learned"].items()}
+    sim.run_steps(MAP_STEPS)
+    lb = {k: v.clone() for k, v in sim.state["learned"].items()}
+    merged = pm.merge(la, lb, base)
+    merge_err = 0.0
+    for k in merged:
+        a, b, c = (t[k].cpu().numpy() for t in (la, lb, base))
+        merge_err = max(merge_err, float(np.abs(
+            merged[k].cpu().numpy() - (c + (a - c) + (b - c))).max()))
+    ids = [id(x) for x in _flatten(sim.state)]
+    pm.inject(sim, {k.split("_")[0]: v for k, v in merged.items()})
+    inject_err = max(float((sim.state["learned"][k] - merged[k]).abs().max())
+                     for k in merged)
+    if [id(x) for x in _flatten(sim.state)] != ids:
+        raise AssertionError("inject replaced a state leaf")
+    log(f"map_merge in process (flagship agent, maps after {MAP_STEPS} and "
+        f"{2 * MAP_STEPS} steps): merge on the card vs the formula on the "
+        f"host {merge_err:.3e}; injected in place {inject_err:.3e}")
+    if merge_err != 0.0 or inject_err != 0.0:
+        raise AssertionError(f"map merge: {merge_err}, {inject_err}")
+    del sim
+    torch.cuda.empty_cache()
+
+    built = pl.build(pl.parse_args(["--T", "3", "--exchange-s", "1"]))
+    runner = BatchedEpisodes(built["sim"], built["tables"])
+    runner.run(MAP_STEPS)
+    prev = {k: v.cpu().numpy()
+            for k, v in learned_base(built["sim"]).items()}
+    before = {k: v.cpu().numpy().copy()
+              for k, v in runner.state["learned"].items()}
+    base = learned_base(built["sim"])
+    pl.exchange(runner, base)
+    exch_err = 0.0
+    for k, leaf in runner.state["learned"].items():
+        want = before[k][0] + before[k][1] - prev[k]
+        got = leaf.cpu().numpy()
+        exch_err = max(exch_err, float(np.abs(got[0] - want).max()),
+                       float(np.abs(got[1] - want).max()),
+                       float(np.abs(base[k].cpu().numpy() - want).max()))
+    snap = [x.clone() for x in _flatten(runner.state)]
+    row = runner.n_steps
+    p_idx = next(bp.index for bp in built["sim"].model.probes
+                 if bp.obj is built["probe"])
+    traces = {}
+    for eager in (False, True):
+        for x, s in zip(_flatten(runner.state), snap):
+            x.copy_(s)
+        runner.n_steps = row
+        runner.eager = eager
+        traces[eager] = runner.run(MAP_STEPS)[p_idx].cpu().numpy()
+        runner.sync()
+    runner.eager = False
+    live_err = float(np.abs(traces[False] - traces[True]).max())
+    log(f"live_merge in process (flagship, B = 2): one exchange after "
+        f"{MAP_STEPS} steps vs A + B - M_prev: {exch_err:.3e}; the next "
+        f"{MAP_STEPS} batched steps, replay vs eager: {live_err:.3e} (tol "
+        f"{REPLAY_TOL})")
+    if exch_err != 0.0 or not (np.all(np.isfinite(traces[False]))
+                               and live_err <= REPLAY_TOL):
+        raise AssertionError(f"live exchange: {exch_err}, {live_err}")
+    out = {"merge_vs_formula": merge_err, "inject": inject_err,
+           "exchange_vs_formula": exch_err,
+           "after_exchange_replay_vs_eager": live_err,
+           "vco_scan_launches": vco.vco_scan.launches}
+    del runner, built
+    torch.cuda.empty_cache()
+    if out["vco_scan_launches"] != 0:
+        raise AssertionError("the map phase launched vco_scan")
+    return out
+
+
+def flagship_mflop(vco):
+    """Phase 30 in process: MFLOP per step of bench.py --model slam's
+    flagship model (``model_utilization_summary``), built here; returns it
+    and the VCO kernel's launches."""
+    from sspslam_tpu_torch import HexagonalSSPSpace
+    from sspslam_tpu_torch.experiments.common import (slam_simulator,
+                                                      slam_world)
+    from sspslam_tpu_torch.utils.profiling import model_utilization_summary
+    vco.vco_scan.launches = 0
+    sim, _, _ = slam_simulator(make_space(HexagonalSSPSpace),
+                               slam_world(14.0, 10, SEED), device="cuda")
+    mflop = round(sum(r["flops_per_step"]
+                      for r in model_utilization_summary(sim.model)) / 1e6,
+                  2)
+    del sim
+    torch.cuda.empty_cache()
+    return mflop, vco.vco_scan.launches
+
+
+def analyses_phase(children, flagship, work):
+    """Phase 30: gate_fidelity at the flagship widths (its engaged
+    fractions), bf16_drift (the trajectory cosine finite, both steps/s
+    printed), scale_study's rows (MFLOP/step at d = 97 equal to
+    ``flagship``, flagship_mflop's result), and redecode_scaled on phase
+    21's npz in ``work`` (polished median <= grid median)."""
+    out = {}
+    stdout, seconds, launches = children["gate_fidelity"]
+    rows = [l.split() for l in stdout.splitlines()
+            if l.startswith(("loihi ", "matched "))]
+    engaged = {f"{r[0]} {r[1]}": {"median_err": float(r[2]),
+                                  "engaged_frac": float(r[3])}
+               for r in rows}
+    _finite(engaged, "gate_fidelity")
+    if len(engaged) != 3:
+        raise AssertionError(f"gate_fidelity printed {stdout!r}")
+    log(f"gate_fidelity (flagship widths, T = 2 s): exit 0 in "
+        f"{seconds:.1f} s; {engaged}")
+    out["gate_fidelity"] = {"rows": engaged, "seconds": seconds,
+                            "vco_scan_launches": launches}
+
+    stdout, seconds, launches = children["bf16_drift"]
+    cos = [float(x) for x in next(
+        l for l in stdout.splitlines() if l.startswith("f32-vs-bf16")
+    ).replace(":", " ").split()[4::2]]
+    rates = [float(l.split("(")[1].split()[0]) for l in stdout.splitlines()
+             if l.startswith(("f32  :", "bf16 :"))]
+    if len(cos) != 3 or len(rates) != 2 or not np.all(np.isfinite(cos)):
+        raise AssertionError(f"bf16_drift printed {stdout!r}")
+    log(f"bf16_drift (T = 10 s): exit 0 in {seconds:.1f} s; trajectory "
+        f"cosine median / min / final {cos}; steps/s f32 {rates[0]}, bf16 "
+        f"{rates[1]}")
+    out["bf16_drift"] = {"cosine_median_min_final": cos,
+                         "steps_per_s_f32_bf16": rates, "seconds": seconds,
+                         "vco_scan_launches": launches}
+
+    stdout, seconds, launches = children["scale_study"]
+    table = [[c.strip() for c in l.strip("|").split("|")]
+             for l in stdout.splitlines()
+             if l.startswith("| ") and l[2].isdigit()]
+    want, summary_launches = flagship
+    got = [float(r[3]) for r in table if r[0] == str(SSP_DIM)]
+    log(f"scale_study --dims 97,193: exit 0 in {seconds:.1f} s; rows (d, "
+        f"neurons, dtype, MFLOP/step, steps/s, us/step): {table}; "
+        f"MFLOP/step of the flagship model built here: {want}")
+    if len(table) != 4 or got != [want, want]:
+        raise AssertionError(f"scale_study rows {table} against {want}")
+    out["scale_study"] = {"rows": table, "mflop_flagship": want,
+                          "seconds": seconds, "vco_scan_launches": launches,
+                          "summary_vco_scan_launches": summary_launches}
+
+    (npz,) = [os.path.join(work, f) for f in os.listdir(work)
+              if f.startswith("scaled_slam_")]
+    stdout, seconds, launches = run_counted("redecode_scaled", npz)
+    r = _json_line(stdout)
+    log(f"redecode_scaled on phase 21's npz: exit 0 in {seconds:.1f} s; "
+        f"median grid {r['median_grid']}, polished {r['median_polished']}")
+    if not (np.isfinite(r["median_polished"])
+            and r["median_polished"] <= r["median_grid"]):
+        raise AssertionError(f"redecode_scaled: {r}")
+    out["redecode_scaled"] = dict(r, seconds=seconds,
+                                  vco_scan_launches=launches)
+    return out
+
+
 def time_checkout(root: str) -> None:
     """``--time ROOT``: ms per CHUNK-step chunk of the ``vco_scan`` of the
     checkout at ``root``, at the cluster size it picks, on the main path's
@@ -2838,8 +3346,11 @@ def main() -> int:
     family["cleanup"] = cleanup_methods(vco)
     family["pi_variants"] = pi_variants(space, vco)
 
-    # 10, 13, 18 (and 23's children): run together
-    children = untimed_children()
+    # 10, 13, 18 (and 23's, 25's, 26's children) and 28-30's CLIs: run
+    # together beside 28-30's in-process checks; ``work`` holds the npz
+    # files the CLIs of phases 21 and 28 write for 28 and 30 to read
+    work = tempfile.mkdtemp(prefix="chip_smoke_")
+    children, (schedule, maps, flagship) = children_and_checks(vco, work)
     simulator["run_pathint"] = cli_errors("run_pathint",
                                           *children["run_pathint"])
     slam["run_slam"] = cli_errors("run_slam", *children["run_slam"])
@@ -2851,7 +3362,7 @@ def main() -> int:
     # 19-21. quantised storage, batched episodes, the scaled CLI
     scaled = {"quantised": quantised_slam(space, vco, slam),
               "batched": batched_episodes(space, vco),
-              "scaled_slam": scaled_slam()}
+              "scaled_slam": scaled_slam(work)}
 
     # 22-24. training through episodes, closed-loop sessions
     training = {"pathint": train_pathint_phase(vco),
@@ -2865,6 +3376,12 @@ def main() -> int:
     serving["host"] = host_phase(isim, vco)
     del isim
 
+    # 28-30. the SLAM experiment CLIs (run with the untimed children)
+    clis = {"loop_closure": loop_closure_phase(children, schedule, work),
+            "maps": maps_phase(children, maps),
+            "analyses": analyses_phase(children, flagship, work)}
+    shutil.rmtree(work, ignore_errors=True)
+
     ms = float(np.mean(full[chosen]))
     b_ms, b_by = bound_ms(fpi.n, fpi.k, fpi.d, fpi.N, CHUNK, spikes)
     log(f"bound per {CHUNK}-step chunk ({spikes} spikes): {b_ms:.4f} ms "
@@ -2876,6 +3393,7 @@ def main() -> int:
     print(json.dumps({"scaled": scaled}), flush=True)
     print(json.dumps({"train": training}), flush=True)
     print(json.dumps({"serving": serving}), flush=True)
+    print(json.dumps({"clis": clis}), flush=True)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"kernels": [{
         "name": "vco_scan", "route": "cuda",
@@ -2938,7 +3456,36 @@ def main() -> int:
                 serving["interpreter"]["run_slam_numpy"][
                     "vco_scan_launches"],
             "host library and trace_run (phase 27)":
-                serving["host"]["vco_scan_launches"]}}]}))
+                serving["host"]["vco_scan_launches"],
+            "validate_loop_closure --tuned (phase 28)":
+                clis["loop_closure"]["headline"]["vco_scan_launches"],
+            "kidnapped_robot --in-model (phase 28)":
+                clis["loop_closure"]["kidnap_in_model"]["vco_scan_launches"],
+            "kidnapped_robot --dump (phase 28)":
+                clis["loop_closure"]["kidnap_scripted"]["vco_scan_launches"],
+            "check_anchor_enters (phase 28)":
+                clis["loop_closure"]["kidnap_scripted"][
+                    "check_anchor_enters_vco_scan_launches"],
+            "recovery schedule in process (phase 28)":
+                clis["loop_closure"]["schedule"]["vco_scan_launches"],
+            "map_merge (phase 29)":
+                clis["maps"]["map_merge"]["vco_scan_launches"],
+            "live_merge (phase 29)":
+                clis["maps"]["live_merge"]["vco_scan_launches"],
+            "merge and exchange in process (phase 29)":
+                clis["maps"]["in_process"]["vco_scan_launches"],
+            "gate_fidelity (phase 30)":
+                clis["analyses"]["gate_fidelity"]["vco_scan_launches"],
+            "bf16_drift (phase 30)":
+                clis["analyses"]["bf16_drift"]["vco_scan_launches"],
+            "scale_study (phase 30)":
+                clis["analyses"]["scale_study"]["vco_scan_launches"],
+            "model summary in process (phase 30)":
+                clis["analyses"]["scale_study"][
+                    "summary_vco_scan_launches"],
+            "redecode_scaled (phase 30)":
+                clis["analyses"]["redecode_scaled"][
+                    "vco_scan_launches"]}}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": card,
         "count": torch.cuda.device_count()}}))

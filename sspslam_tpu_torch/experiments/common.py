@@ -15,6 +15,7 @@ import os
 import time
 
 import numpy as np
+import torch
 
 from ..nef import WhiteSignal
 from ..sspspace import HexagonalSSPSpace, RandomSSPSpace, SPSpace
@@ -127,6 +128,16 @@ def kernel_value(space, r, M=200, seed=0):
     cs = np.sum(a * b, axis=1) / (np.linalg.norm(a, axis=1)
                                   * np.linalg.norm(b, axis=1))
     return float(np.mean(cs))
+
+
+def learned_base(sim):
+    """The model's initial learned leaves (PES decoders, Voja encoders) as
+    float32 tensors on ``sim``'s device: the base a map merge or exchange
+    adds its deltas to."""
+    def f32(x):
+        x = x.detach().cpu().numpy() if torch.is_tensor(x) else x
+        return torch.as_tensor(np.asarray(x, np.float32)).to(sim.device)
+    return {k: f32(v) for k, v in sim.model.learned_init.items()}
 
 
 def save_npz(args, filename, **arrays):

@@ -47,15 +47,110 @@ def with_port_hoisted(model, np_params):
     from sspslam_tpu_torch.nef.executor import build_params
     own = build_params(model, device="cpu")["hoisted"]
     given = np_params.get("hoisted", {})
-    by_names = {tuple(sorted(v)): k for k, v in given.items()}
-    assert len(by_names) == len(given), "hoisted entries share their names"
+    # entries with the same table names (two SLAMs in one network) pair up
+    # in build order
+    by_names = {}
+    for k in sorted(given, key=lambda k: int(k[1:])):
+        by_names.setdefault(tuple(sorted(given[k])), []).append(k)
     hoisted = {}
-    for key, tables in own.items():
-        jkey = by_names.pop(tuple(sorted(tables)), None)
-        hoisted[key] = (given[jkey] if jkey is not None else
+    for key in sorted(own, key=lambda k: int(k[1:])):
+        tables = own[key]
+        jkeys = by_names.get(tuple(sorted(tables)))
+        hoisted[key] = (given[jkeys.pop(0)] if jkeys else
                         {n: t.float().numpy() for n, t in tables.items()})
-    assert not by_names, f"JAX hoisted entries the port lacks: {by_names}"
+    left = {k: v for k, v in by_names.items() if v}
+    assert not left, f"JAX hoisted entries the port lacks: {left}"
     return dict(np_params, hoisted=hoisted)
+
+
+# Runs a JAX package CLI script as ``python script`` does, recording every
+# Simulator it builds, then saves each one's dense probe traces to the npz
+# named first: key "s<i>_p<probe index>" for the i-th Simulator built.
+_RECORDED_JAX_CLI = """
+import runpy, sys
+import numpy as np
+import sspslam_tpu.nef as nef
+out, sys.argv = sys.argv[1], sys.argv[2:]
+sims = []
+class Recorded(nef.Simulator):
+    def __init__(self, *a, **k):
+        super().__init__(*a, **k)
+        sims.append(self)
+nef.Simulator = Recorded
+runpy.run_path(sys.argv[0], run_name="__main__")
+np.savez(out, **{f"s{i}_p{bp.index}": np.asarray(s.data[bp.obj])
+                 for i, s in enumerate(sims) if s.n_steps
+                 for bp in s.model.probes if not bp.sparse})
+"""
+
+
+def start_jax_cli(script, args, traces=None):
+    """Start the JAX package's ``experiments/<script>`` with ``args`` in a
+    child on the CPU (one thread, float32 clean-up argmax); with
+    ``traces`` (an npz path) the child records its Simulators' dense probe
+    traces there.  Returns the Popen (text stdout / stderr pipes)."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+    repo = Path(__file__).resolve().parents[1]
+    env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=str(repo),
+               SSPSLAM_CLEANUP_F32="1", OMP_NUM_THREADS="1")
+    path = str(repo / "experiments" / script)
+    cmd = ([sys.executable, "-c", _RECORDED_JAX_CLI, str(traces), path]
+           if traces is not None else [sys.executable, path])
+    return subprocess.Popen(cmd + list(args), cwd=repo, env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+
+
+def jax_cli_module(name):
+    """The JAX package's ``experiments/<name>.py`` imported in this process
+    (it puts the repository on sys.path itself; so does this)."""
+    import importlib
+    import sys
+    from pathlib import Path
+    repo = str(Path(__file__).resolve().parents[1])
+    if repo not in sys.path:
+        sys.path.insert(0, repo)
+    return importlib.import_module(f"experiments.{name}")
+
+
+def finish(proc, timeout=600):
+    """A child of ``start_jax_cli`` waited for: it must exit 0; returns
+    its standard output."""
+    out, err = proc.communicate(timeout=timeout)
+    assert proc.returncode == 0, err[-3000:]
+    return out
+
+
+def run_port_cli(module, argv):
+    """``sspslam_tpu_torch.experiments.<module>.main(argv)`` in this
+    process, its standard output captured; returns (main's value,
+    stdout)."""
+    import contextlib
+    import importlib
+    import io
+    cli = importlib.import_module(f"sspslam_tpu_torch.experiments.{module}")
+    with contextlib.redirect_stdout(io.StringIO()) as out:
+        value = cli.main(list(argv))
+    return value, out.getvalue()
+
+
+def last_json(stdout):
+    """The last line of a CLI's output that is a JSON object."""
+    import json
+    return json.loads(next(line for line in reversed(stdout.splitlines())
+                           if line.startswith("{")))
+
+
+def key_tree(obj):
+    """The nested key structure of a JSON value (lists by their items')."""
+    if isinstance(obj, dict):
+        return {k: key_tree(v) for k, v in obj.items()}
+    if isinstance(obj, list):
+        return [key_tree(v) for v in obj]
+    return None
 
 
 def to_tensors(tree):
