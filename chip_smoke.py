@@ -222,7 +222,24 @@ result line):
    1`` (MFLOP/step at d = 97 equal to the model summary of the flagship
    model built here) and ``redecode_scaled`` on phase 21's ``--save`` npz
    (polished median <= grid median).  The VCO kernel launches 0 times
-   over phases 28-30 and their children.
+   over phases 28-30 and their children;
+31. the sharded scan (run after phase 7, while the card is quiet):
+   ``parallel.make_sharded_vco_scan`` at phase 3's width with the
+   oscillators split into S = 1, 2, 4 and 7 shards, each shard's kernel on
+   its own CUDA stream: against the plain sharded scan on the card over 40
+   steps (max-abs <= 2e-4), one 10,000-step chunk of the main path's
+   traffic against the unsharded kernel's trace of it (median |diff| <=
+   2e-3, decoded positions at the chunk end within 0.1) with exactly S
+   kernel launches, and ms per chunk (CUDA events);
+32. the demos: ``run_pathint_gif``, ``run_slam_map_gif`` and
+   ``slam_map_new`` at their default widths through their ``build`` and
+   ``simulate`` (the scripts' simulation and readout; the card's machine
+   has no matplotlib to render): graph replay against the eager step
+   over 300 steps, every probe (the sparse snapshots of learned weights
+   included) and state leaf (<= 1e-6); then runs of 10, 10 and 20 s
+   (steps/s, taken beside the CLI children; every array finite;
+   ``slam_map_new``'s tracking cosine, item errors and area-query sims).
+   The VCO kernel launches 0 times.
 
 Every CLI subprocess (phases 10, 13, 18, 21-26 and 28-30) runs its module
 as ``python -m`` does, through runpy, and then prints the VCO kernel's
@@ -232,14 +249,15 @@ three ``train_slam`` runs, 25's ``serving_probe``, 26's ``run_slam
 --backend numpy`` and the CLIs of phases 28-30 but ``check_anchor_enters`` and
 ``redecode_scaled``, which read files phases 21 and 28 write) run together
 after phase 17, while the smoke's own process runs the in-process checks
-of phases 28-30, none of which is timed.
+of phases 28-30, none of which is timed, and phase 32.
 
-The last ten lines of standard output are one JSON object of the
+The last eleven lines of standard output are one JSON object of the
 Simulator's numbers, one of the SLAM numbers, one of phases 14-18
 (``family``), one of phases 19-21 (``scaled``), one of phases 22-24
 (``train``), one of phases 25-27 (``serving``), one of phases 28-30
-(``clis``), the card's name and power limit, one JSON object describing
-the kernel, and the result line.
+(``clis``), one of phases 31-32 (``sharded``, ``demos``), the card's name
+and power limit, one JSON object describing the kernel, and the result
+line.
 
 To compare the kernel of two checkouts on one card, time each in turns
 within one command (the other commit unpacked into a git-ignored
@@ -256,6 +274,8 @@ and prints one JSON line; it runs none of the phases above.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
 import json
 import os
 import shutil
@@ -1107,21 +1127,22 @@ def children_and_checks(vco, work):
     """``untimed_jobs``' children and phases 28-30's CLIs
     (``new_cli_jobs``) run together after phase 17, while this process
     runs phases 28-30's own checks, none of them timed
-    (``recovery_schedule``, ``maps_in_process``, ``flagship_mflop``);
-    ``work`` is the directory the CLIs write their files into.  Returns
-    ({key: counted_result}, the three checks' results)."""
+    (``recovery_schedule``, ``maps_in_process``, ``flagship_mflop``), and
+    phase 32's demos (``demos_phase``: their steps/s are taken beside the
+    children); ``work`` is the directory the CLIs write their files into.
+    Returns ({key: counted_result}, the four checks' results)."""
     jobs, envs = untimed_jobs()
     t0 = time.perf_counter()
     pending = start_together({**jobs, **new_cli_jobs(work)}, envs)
     try:
         checks = (recovery_schedule(vco), maps_in_process(vco),
-                  flagship_mflop(vco))
+                  flagship_mflop(vco), demos_phase(vco))
         children = wait_together(pending, timeout=1000)
     except BaseException:
         stop_children(pending)
         raise
     log(f"{len(children)} CLI children together, beside phases 28-30's "
-        f"checks: {time.perf_counter() - t0:.1f} s")
+        f"and 32's checks: {time.perf_counter() - t0:.1f} s")
     return children, checks
 
 
@@ -3247,6 +3268,189 @@ def analyses_phase(children, flagship, work):
     return out
 
 
+SHARDS = (1, 2, 4, 7)     # oscillator shards of the sharded scan (phase 31)
+SHARD_REPEATS = 3         # timed chunks per shard count
+DEMO_REPLAY = 300         # each demo's replay vs eager steps (phase 32)
+# the demos at their scripts' default widths, shortened runs: a path of
+# 10 s at the default --limit 0.1 moves (one component), and slam_map_new's
+# WhiteSignal of high 0.05 Hz needs T >= 20 s
+DEMOS = (("run_pathint_gif", ("--T", "10")),
+         ("run_slam_map_gif", ("--T", "10")),
+         ("slam_map_new", ("--T", "20")))
+
+
+def sharded_scan(vco, fpi, space, unsharded, unsharded_ms, num_sms):
+    """Phase 31: ``parallel.make_sharded_vco_scan`` at the main path's
+    width (ssp_dim 97, k = 49, 800 LIF per VCO) for every S of SHARDS:
+    against the plain sharded scan on the card over SHORT steps (max-abs
+    <= SHORT_TOL), then one CHUNK-step chunk of the main path's traffic
+    from the zero state, counted (S launches), against ``unsharded`` (the
+    unsharded kernel's trace of the same chunk, phase 3: median |diff|
+    <= LONG_MEDIAN_TOL, decoded positions at the chunk end within
+    DRIFT_TOL), then ms per chunk by CUDA events (SHARD_REPEATS chunks
+    after that one).  Returns {S: numbers}."""
+    from sspslam_tpu_torch.parallel import make_sharded_vco_scan
+    d = fpi.d
+    vel_c = torch.tensor(traffic()[:CHUNK], device="cuda")
+    corr_c = torch.zeros((CHUNK, d), dtype=torch.float32, device="cuda")
+    rng = np.random.default_rng(1)
+    vel_s = torch.tensor(0.02 * rng.normal(size=(SHORT, 2)),
+                         dtype=torch.float32, device="cuda")
+    corr_s = torch.zeros((SHORT, d), dtype=torch.float32, device="cuda")
+    corr_s[:20] = torch.tensor(space.encode(np.array([[0.1, -0.2]])).ravel(),
+                               dtype=torch.float32)
+    end_ref = decode(space, unsharded[-1:].cpu().numpy())
+    results = {}
+    for S in SHARDS:
+        short = make_sharded_vco_scan(fpi.params, S, SHORT)
+        _, y_k = short(short.initial_state(), vel_s, corr_s)
+        y_p = None
+        for p, s0 in zip(short.shards, short.initial_state()):
+            _, y = vco.vco_scan_reference(p, s0, vel_s, corr_s)
+            y_p = y if y_p is None else y_p + y
+        err = float((y_k - y_p).abs().max())
+        if not err <= SHORT_TOL:
+            raise AssertionError(f"sharded scan S={S}: kernel vs plain "
+                                 f"{err} > {SHORT_TOL}")
+        run = make_sharded_vco_scan(fpi.params, S, CHUNK)
+        k_shard = run.shards[0].bias.shape[1]
+        state0 = run.initial_state()
+        vco.vco_scan.launches = 0
+        _, y = run(state0, vel_c, corr_c)
+        torch.cuda.synchronize()
+        launches = vco.vco_scan.launches
+        if launches != S:
+            raise AssertionError(f"sharded scan S={S}: {launches} kernel "
+                                 f"launches for one chunk, not {S}")
+        diff = (y - unsharded).abs()
+        med = float(diff.median())
+        dist = float(np.linalg.norm(decode(space, y[-1:].cpu().numpy())
+                                    - end_ref))
+        if not (med <= LONG_MEDIAN_TOL and dist <= DRIFT_TOL):
+            raise AssertionError(f"sharded scan S={S} vs the unsharded "
+                                 f"kernel: median {med}, decoded "
+                                 f"difference {dist}")
+        ms, _ = cuda_ms(lambda: run(state0, vel_c, corr_c), SHARD_REPEATS)
+        results[str(S)] = {
+            "oscillators_per_shard": k_shard,
+            "cluster": vco._cluster_size(fpi.n, k_shard, num_sms),
+            "launches_per_chunk": launches, "max_abs_vs_plain": err,
+            "median_vs_unsharded": med,
+            "max_abs_vs_unsharded": float(diff.max()),
+            "decoded_diff_vs_unsharded": dist, "ms": ms}
+        log(f"sharded scan S={S} ({k_shard} VCOs a shard, C="
+            f"{results[str(S)]['cluster']}): kernel vs plain, {SHORT} "
+            f"steps: max-abs {err:.3e} (tol {SHORT_TOL}); {launches} "
+            f"launches a chunk; vs the unsharded kernel over {CHUNK} "
+            f"steps: "
+            f"median {med:.3e} (tol {LONG_MEDIAN_TOL}), max-abs "
+            f"{float(diff.max()):.3e}, decoded difference at the end "
+            f"{dist:.4f} (tol {DRIFT_TOL}); {ms:.3f} ms a chunk (unsharded "
+            f"{unsharded_ms:.3f})")
+        del run, short
+    return results
+
+
+def demo_replay(sim, what, steps=DEMO_REPLAY):
+    """Graph replay against the eager step over ``steps`` steps from the
+    fresh state: every probe (dense traces and sparse snapshots of learned
+    weights) and every state leaf; returns the max-abs difference."""
+    from sspslam_tpu_torch.nef.simulator import _flatten
+    runs = {}
+    for eager in (False, True):
+        sim.reset()
+        sim._eager = eager
+        with contextlib.redirect_stdout(io.StringIO()):
+            sim.run_steps(steps)
+        sim.sync()
+        runs[eager] = ([sim.data[bp.obj] for bp in sim.model.probes],
+                       [x.detach().cpu().double().numpy()
+                        for x in _flatten(sim.state)])
+    sim._eager = False
+    sim.reset()
+    err, sparse = 0.0, 0
+    for bp, a, b in zip(sim.model.probes, runs[False][0], runs[True][0]):
+        if a.shape != b.shape or not np.all(np.isfinite(a)):
+            raise AssertionError(f"{what}: probe {bp.index} replayed "
+                                 f"{a.shape}, eager {b.shape}, or not "
+                                 f"finite")
+        sparse += bool(bp.sparse and a.size)
+        if a.size:
+            err = max(err, float(np.abs(a - b).max()))
+    for a, b in zip(*(runs[e][1] for e in (False, True))):
+        if a.size:
+            err = max(err, float(np.abs(a - b).max()))
+    log(f"{what}: graph replay vs eager step, {steps} steps, every probe "
+        f"({sparse} sparse snapshots of learned weights) and state leaf: "
+        f"max-abs {err:.3e} (tol {REPLAY_TOL})")
+    if not err <= REPLAY_TOL:
+        raise AssertionError(f"{what}: graph replay differs from the eager "
+                             f"step: {err}")
+    return err
+
+
+def _all_finite(what, *arrays):
+    for a in arrays:
+        if not np.all(np.isfinite(np.asarray(a, np.float64))):
+            raise AssertionError(f"{what}: non-finite output")
+
+
+def demos_phase(vco):
+    """Phase 32, in process: the three simulating demos' ``build`` and
+    ``simulate`` (what their scripts run before rendering) on the card at
+    their default widths: replay vs eager over DEMO_REPLAY steps
+    (``demo_replay``), then a shortened run (DEMOS' flags) timed by the
+    scripts' own ``simulate``, its arrays finite; slam_map_new's tracking
+    cosine, item errors and area-query sims printed.  The VCO kernel
+    launches 0 times.  Returns {demo: numbers}."""
+    import importlib
+    results = {}
+    vco.vco_scan.launches = 0
+    for name, flags in DEMOS:
+        mod = importlib.import_module(
+            f"sspslam_tpu_torch.experiments.{name}")
+        args = mod.parse_args(list(flags))
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            built = mod.build(args)
+        build_s = time.perf_counter() - t0
+        sim = built["sim"]
+        err = demo_replay(sim, name)
+        with contextlib.redirect_stdout(io.StringIO()):
+            res = mod.simulate(args, built)
+        out = {"T": float(args.T), "build_s": build_s,
+               "neurons": int(sum(be.n * (be.k if be.batched else 1)
+                                  for be in sim.model.ensembles)),
+               "replay_vs_eager": err, "steps_per_s": res["steps_per_s"],
+               "seconds": res["seconds"]}
+        if name == "run_pathint_gif":
+            _all_finite(name, res["out"], res["osc"], res["sims"])
+            out["raster"] = list(res["raster"].shape)
+        elif name == "run_slam_map_gif":
+            _all_finite(name, res["out"], res["posterior"], res["maps"],
+                        res["weights"], res["encoders"])
+            out["frames"] = int(len(res["maps"]))
+        else:
+            _all_finite(name, res["out"], res["item_errors"],
+                        res["area_sims"], [res["tracking"]])
+            out.update(tracking=res["tracking"],
+                       item_errors=[float(e) for e in res["item_errors"]],
+                       blue_triangle_error=res["blue_triangle_error"],
+                       area_sims=[float(x) for x in res["area_sims"]])
+            for line in res["lines"]:
+                log(f"  {name}: {line.strip()}")
+        log(f"{name} (T = {args.T} s, {out['neurons']} neurons): build "
+            f"{build_s:.1f} s, {res['steps_per_s']:.0f} steps/s "
+            f"({res['seconds']:.1f} s)")
+        results[name] = out
+        del built, sim, res
+        torch.cuda.empty_cache()
+    results["vco_scan_launches"] = vco.vco_scan.launches
+    if results["vco_scan_launches"] != 0:
+        raise AssertionError("the demos launched the VCO kernel")
+    return results
+
+
 def time_checkout(root: str) -> None:
     """``--time ROOT``: ms per CHUNK-step chunk of the ``vco_scan`` of the
     checkout at ``root``, at the cluster size it picks, on the main path's
@@ -3333,6 +3537,10 @@ def main() -> int:
     # 7. accuracy
     accuracy(HexagonalSSPSpace, FastPathIntegrator)
 
+    # 31. the sharded scan, on the card while it is quiet
+    sharded = sharded_scan(vco, fpi, space, y_chunk[chosen],
+                           float(np.mean(full[chosen])), num_sms)
+
     # 8-10. the generic engine
     simulator = simulator_path(space, vco, trace)
     simulator["semantics_vs_cpu"] = simulator_semantics()
@@ -3350,7 +3558,8 @@ def main() -> int:
     # together beside 28-30's in-process checks; ``work`` holds the npz
     # files the CLIs of phases 21 and 28 write for 28 and 30 to read
     work = tempfile.mkdtemp(prefix="chip_smoke_")
-    children, (schedule, maps, flagship) = children_and_checks(vco, work)
+    children, (schedule, maps, flagship, demos) = children_and_checks(vco,
+                                                                     work)
     simulator["run_pathint"] = cli_errors("run_pathint",
                                           *children["run_pathint"])
     slam["run_slam"] = cli_errors("run_slam", *children["run_slam"])
@@ -3394,6 +3603,7 @@ def main() -> int:
     print(json.dumps({"train": training}), flush=True)
     print(json.dumps({"serving": serving}), flush=True)
     print(json.dumps({"clis": clis}), flush=True)
+    print(json.dumps({"sharded": sharded, "demos": demos}), flush=True)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"kernels": [{
         "name": "vco_scan", "route": "cuda",
@@ -3411,7 +3621,12 @@ def main() -> int:
         "whole_run_vs_cluster": other,
         "whole_run_decoded_diff": ends,
         "launched_by": ["FastPathIntegrator.run (phase 5, bench.py --model "
-                        "pi-fast traffic)"],
+                        "pi-fast traffic)",
+                        "make_sharded_vco_scan (phase 31): one launch per "
+                        "shard per chunk"],
+        "launches_on_sharded_path": {
+            S: r["launches_per_chunk"] for S, r in sharded.items()},
+        "sharded_ms_by_shards": {S: r["ms"] for S, r in sharded.items()},
         "launches_on_simulator_paths": {
             "pi (phase 8)": simulator["vco_scan_launches"],
             "run_pathint (phase 10)":
@@ -3485,7 +3700,9 @@ def main() -> int:
                     "summary_vco_scan_launches"],
             "redecode_scaled (phase 30)":
                 clis["analyses"]["redecode_scaled"][
-                    "vco_scan_launches"]}}]}))
+                    "vco_scan_launches"],
+            "run_pathint_gif, run_slam_map_gif, slam_map_new (phase 32)":
+                demos["vco_scan_launches"]}}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": card,
         "count": torch.cuda.device_count()}}))

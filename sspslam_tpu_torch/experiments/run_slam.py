@@ -12,11 +12,12 @@ on ``--device cpu``; ``numpy`` runs the NumPy interpreter
 (:class:`nef.reference_backend.NumpyStepper`) on the host over the model
 built on ``--device`` (with ``--device cpu`` it needs no card);
 ``gated`` builds the all-neural ``SLAMGatedNetwork`` (no learned-map
-extraction, as in the JAX CLI).  Not ported: ``--plot`` (ROADMAP.md
-Queue 1 item 1).
+extraction, as in the JAX CLI).  ``--plot`` writes
+``figures/slam_<backend>.png`` (imports matplotlib).
 """
 
 import argparse
+import os
 import time
 
 import numpy as np
@@ -39,8 +40,7 @@ BACKENDS = {"jit": "jit", "ocl": "jit", "tpu": "jit", "cpu": "cpu",
 
 def main(argv=None):
     parser = argparse.ArgumentParser(
-        description="SSP-SLAM on the port. --plot is not ported yet "
-                    "(ROADMAP.md Queue 1 item 1).",
+        description="SSP-SLAM on the port.",
         formatter_class=argparse.ArgumentDefaultsHelpFormatter)
     add_common_args(parser, default_T=200.0)
     parser.add_argument("--backend", default="jit",
@@ -77,10 +77,6 @@ def main(argv=None):
     if backend not in BACKENDS:
         raise SystemExit(f"unknown backend {args.backend!r}")
     backend = BACKENDS[backend]
-    if args.plot:
-        raise NotImplementedError(
-            "--plot is not ported yet (ROADMAP.md Queue 1 item 1); "
-            "--save writes the traces to an npz")
     if args.tuned:
         args.update_thres, args.shift_rate = 0.4, 0.1
         args.pes_lr, args.voja_lr, args.intercept = 2e-2, 1e-4, 0.3
@@ -254,6 +250,29 @@ def main(argv=None):
                  elapsed_time=elapsed_time,
                  elapsed_thread_time=elapsed_thread_time,
                  sig_to_noise_ratio=sig_to_noise_ratio)
+
+    if args.plot:
+        import matplotlib
+        matplotlib.use("Agg")
+        import matplotlib.pyplot as plt
+        fig = plt.figure(figsize=(5.5, 4))
+        spec = fig.add_gridspec(3, 2)
+        ax0 = fig.add_subplot(spec[0, :])
+        ax0.plot(ts, 1 - slam_sims)
+        ax0.set_ylabel("Cosine Error"); ax0.set_xlabel("Time (s)")
+        ax1 = fig.add_subplot(spec[1, :])
+        ax1.plot(ts, slam_error)
+        ax1.set_ylabel("Distance Error"); ax1.set_xlabel("Time (s)")
+        for j in range(min(2, domain_dim)):
+            axn = fig.add_subplot(spec[2, j])
+            axn.plot(ts, path_s[:, j], color="gray")
+            axn.plot(ts, sim_path_est[:, j], "--", color="k")
+            axn.set_xlabel("Time (s)"); axn.set_ylabel("xy"[j])
+        fig.suptitle("SLAM output")
+        os.makedirs("figures", exist_ok=True)
+        out = os.path.join("figures", f"slam_{backend}.png")
+        fig.savefig(out, dpi=120)
+        print(f"saved {out}")
 
 
 if __name__ == "__main__":

@@ -5,11 +5,12 @@ printed lines of the JAX package's ``experiments/run_slamview.py``, with
     python -m sspslam_tpu_torch.experiments.run_slamview [--device cpu] ...
 
 The network is ``SLAMViewNetwork`` fed by ``get_slamview_input_functions``,
-stepped by the port's :class:`Simulator` (CUDA graphs on the card).  Not
-ported: ``--plot`` (ROADMAP.md Queue 1 item 1).
+stepped by the port's :class:`Simulator` (CUDA graphs on the card).
+``--plot`` writes ``figures/slamview_<seed>.png`` (imports matplotlib).
 """
 
 import argparse
+import os
 import time
 
 import numpy as np
@@ -25,8 +26,7 @@ from .common import (DT, add_common_args, decode_output, make_path,
 
 def main(argv=None):
     parser = argparse.ArgumentParser(
-        description="Local-view-cell SSP-SLAM on the port. --plot is not "
-                    "ported yet (ROADMAP.md Queue 1 item 1).",
+        description="Local-view-cell SSP-SLAM on the port.",
         formatter_class=argparse.ArgumentDefaultsHelpFormatter)
     add_common_args(parser, default_T=100.0)
     parser.add_argument("--n-landmarks", default=10, type=int)
@@ -46,10 +46,6 @@ def main(argv=None):
                         help="Std of Gaussian noise added to the velocity "
                              "signal")
     args = parser.parse_args(argv)
-    if args.plot:
-        raise NotImplementedError(
-            "--plot is not ported yet (ROADMAP.md Queue 1 item 1); "
-            "--save writes the traces to an npz")
     device = args.device
 
     dt = DT
@@ -148,6 +144,21 @@ def main(argv=None):
                  slam_path=sim_path_est, slam_error=slam_error,
                  elapsed_time=elapsed_time,
                  elapsed_thread_time=elapsed_thread_time)
+
+    if args.plot:
+        import matplotlib
+        matplotlib.use("Agg")
+        import matplotlib.pyplot as plt
+        fig, axes = plt.subplots(2, 1, figsize=(5.5, 4), sharex=True)
+        axes[0].plot(ts, 1 - slam_sims)
+        axes[0].set_ylabel("Cosine Error")
+        axes[1].plot(ts, slam_error)
+        axes[1].set_ylabel("Distance Error")
+        axes[1].set_xlabel("Time (s)")
+        os.makedirs("figures", exist_ok=True)
+        out = os.path.join("figures", f"slamview_{args.seed}.png")
+        fig.savefig(out, dpi=120)
+        print(f"saved {out}")
 
 
 if __name__ == "__main__":

@@ -7,6 +7,10 @@ from .sampling import (
     spherical_transform,
     uniform_hypersphere,
 )
+from . import figure_utils
+from . import spikes
+from .figure_utils import save
+from .network_diagram import network_diagram, process_and_save_diagram
 
 __all__ = [
     "Rd_sampling",
@@ -16,4 +20,9 @@ __all__ = [
     "sparsity_to_x_intercept",
     "spherical_transform",
     "uniform_hypersphere",
+    "figure_utils",
+    "spikes",
+    "save",
+    "network_diagram",
+    "process_and_save_diagram",
 ]

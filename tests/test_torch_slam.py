@@ -452,10 +452,18 @@ def test_run_slam_cli_matches_jax(tmp_path):
                 prefix
 
 
-def test_run_slam_plot_not_ported():
-    from sspslam_tpu_torch.experiments import run_slam
-    with pytest.raises(NotImplementedError, match="item 1"):
-        run_slam.main(["--plot", "--device", "cpu"])
+def test_run_slam_plot_not_ported(tmp_path, monkeypatch):
+    """(Named when ``--plot`` raised; it is ported now.) ``run_slam
+    --plot`` on the CPU writes the JAX CLI's figure,
+    ``figures/slam_<backend>.png`` under the working directory."""
+    from torch_parity import run_port_cli
+    monkeypatch.chdir(tmp_path)
+    _, out = run_port_cli("run_slam", ["--backend", "cpu", "--plot",
+                                       *CLI_ARGS, "--save-dir", "data"])
+    png = tmp_path / "figures" / "slam_cpu.png"
+    assert png.read_bytes()[:8] == b"\x89PNG\r\n\x1a\n"
+    assert out.splitlines()[-1] == "saved figures/slam_cpu.png"
+    assert len(glob.glob(str(tmp_path / "data" / "*.npz"))) == 1
 
 
 # ---------------------------------------------------------------------------

@@ -378,14 +378,21 @@ def test_clis_match_jax(tmp_path):
                            for line in pout.splitlines())
 
 
-def test_run_slamview_plot_and_numpy_backend_not_ported():
-    """--plot raises in run_slamview and, with the numpy and cpu backends
-    (ported since: tests/test_torch_reference_backend.py runs them), in
-    run_slam, before any model is built."""
-    from sspslam_tpu_torch.experiments import run_slam, run_slamview
-    with pytest.raises(NotImplementedError, match="item 1"):
-        run_slamview.main(["--plot", "--device", "cpu"])
-    for backend in ("numpy", "cpu"):
-        with pytest.raises(NotImplementedError, match="--plot.*item 1"):
-            run_slam.main(["--backend", backend, "--device", "cpu",
-                           "--plot"])
+def test_run_slamview_plot_and_numpy_backend_not_ported(tmp_path,
+                                                        monkeypatch):
+    """(Named when ``--plot`` raised; it is ported now.) On the CPU
+    ``run_slamview --plot`` writes ``figures/slamview_<seed>.png`` and
+    ``run_slam --backend numpy --plot`` (the NumPy interpreter's run)
+    ``figures/slam_numpy.png`` under the working directory, the JAX CLIs'
+    figures."""
+    from torch_parity import run_port_cli
+    monkeypatch.chdir(tmp_path)
+    for module, flags, png in (
+            ("run_slamview", ["--device", "cpu"], "slamview_0.png"),
+            ("run_slam", ["--backend", "numpy", "--device", "cpu"],
+             "slam_numpy.png")):
+        _, out = run_port_cli(module, [*flags, "--plot", *CLI_ARGS,
+                                       "--save-dir", "data"])
+        path = tmp_path / "figures" / png
+        assert path.read_bytes()[:8] == b"\x89PNG\r\n\x1a\n", module
+        assert out.splitlines()[-1] == f"saved figures/{png}", module

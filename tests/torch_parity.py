@@ -64,13 +64,14 @@ def with_port_hoisted(model, np_params):
 
 
 # Runs a JAX package CLI script as ``python script`` does, recording every
-# Simulator it builds, then saves each one's dense probe traces to the npz
-# named first: key "s<i>_p<probe index>" for the i-th Simulator built.
+# Simulator it builds, then saves each one's dense probe traces (with
+# "all" second, its sparse snapshots too) to the npz named first: key
+# "s<i>_p<probe index>" for the i-th Simulator built.
 _RECORDED_JAX_CLI = """
 import runpy, sys
 import numpy as np
 import sspslam_tpu.nef as nef
-out, sys.argv = sys.argv[1], sys.argv[2:]
+out, which, sys.argv = sys.argv[1], sys.argv[2], sys.argv[3:]
 sims = []
 class Recorded(nef.Simulator):
     def __init__(self, *a, **k):
@@ -80,15 +81,16 @@ nef.Simulator = Recorded
 runpy.run_path(sys.argv[0], run_name="__main__")
 np.savez(out, **{f"s{i}_p{bp.index}": np.asarray(s.data[bp.obj])
                  for i, s in enumerate(sims) if s.n_steps
-                 for bp in s.model.probes if not bp.sparse})
+                 for bp in s.model.probes if which == "all" or not bp.sparse})
 """
 
 
-def start_jax_cli(script, args, traces=None):
+def start_jax_cli(script, args, traces=None, sparse=False):
     """Start the JAX package's ``experiments/<script>`` with ``args`` in a
     child on the CPU (one thread, float32 clean-up argmax); with
     ``traces`` (an npz path) the child records its Simulators' dense probe
-    traces there.  Returns the Popen (text stdout / stderr pipes)."""
+    traces there (with ``sparse``, the sparse probes' snapshots too).
+    Returns the Popen (text stdout / stderr pipes)."""
     import os
     import subprocess
     import sys
@@ -97,7 +99,8 @@ def start_jax_cli(script, args, traces=None):
     env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=str(repo),
                SSPSLAM_CLEANUP_F32="1", OMP_NUM_THREADS="1")
     path = str(repo / "experiments" / script)
-    cmd = ([sys.executable, "-c", _RECORDED_JAX_CLI, str(traces), path]
+    cmd = ([sys.executable, "-c", _RECORDED_JAX_CLI, str(traces),
+            "all" if sparse else "dense", path]
            if traces is not None else [sys.executable, path])
     return subprocess.Popen(cmd + list(args), cwd=repo, env=env,
                             stdout=subprocess.PIPE, stderr=subprocess.PIPE,
