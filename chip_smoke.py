@@ -77,7 +77,7 @@ result line):
    last quarter of the world from one run of its 14,000 steps (>= 0.93,
    bench.py's gate); the gate's hoisted ``shift_rate`` set to 0 in place
    changes the next replay with no new capture, and the replay equals the
-   eager step at 0; steps/s over 5,000 timed steps after one 2,000-step
+   eager step at 0; steps/s over 2,000 timed steps after one 2,000-step
    warm-up segment (inputs past the world repeat its last row), the card's
    clocks and power read just before and after;
 12. ``SLAMNetwork(gate_mode="auto_recovery", anchor=True)`` at the same
@@ -94,7 +94,7 @@ result line):
    product) on phase 11's traffic: build time and neuron count, graph
    replay against eager over 2,000 steps (max-abs <= 1e-6), kernels per
    step, the tracking cosine over the world (printed: the JAX package sets
-   no gate for this model), steps/s over 5,000 timed steps after one
+   no gate for this model), steps/s over 2,000 timed steps after one
    warm-up segment with the clocks and power read around them;
 15. ``SLAMViewNetwork`` at ``run_slamview``'s default widths (700 per VCO,
    memory 970, grid clean-up over 100 x 100) fed by
@@ -107,7 +107,7 @@ result line):
    must be no worse than from-set); ``SLAMNetwork`` at phase 11's width
    with each of the direct-optim, network and network-optim clean-ups,
    replay against eager over 2,000 steps (<= 1e-6), and for direct-optim
-   kernels per step and steps/s over 5,000 timed steps;
+   kernels per step and steps/s over 2,000 timed steps;
 17. ``PathIntegrationReencode``, ``PathIntegrationGC`` and
    ``PathIntegrationBCsGCs`` at ssp_dim 97, 800 neurons per ensemble, on
    phase 8's velocities: replay against eager over 1,000 steps (<= 1e-6)
@@ -120,11 +120,11 @@ result line):
    ``matmul_dtype="int8"`` and again ``"fp8"``: graph replay against eager
    over 2,000 steps (<= 1e-6), kernels per replayed step, the tracking
    cosine over the world (int8 at most 0.05 below float32's, see
-   ``QUANT_TRACKING_BAND``), steps/s over 5,000 timed steps and the bytes
+   ``QUANT_TRACKING_BAND``), steps/s over 2,000 timed steps and the bytes
    of the parameter tree, each beside phase 11's float32 numbers;
 20. batched episodes: phase 11's float32 model, B = 1, 8 and 32 episodes
    of the bench world (episode b's landmarks from seed b) through
-   ``parallel.BatchedEpisodes``: aggregate steps/s over 4,000 timed steps
+   ``parallel.BatchedEpisodes``: aggregate steps/s over 2,000 timed steps
    after a warm-up segment, kernels per replayed batched step (at most
    1.2 x B = 1's: the batch did not loop), peak device memory; at B = 8 the
    batched replay against its eager step over 1,000 steps (<= 1e-6), and
@@ -182,7 +182,7 @@ result line):
    a bundle exported on the CPU from the same model served on the card
    (<= 1e-6 against the live run); an int8 bundle against its live run
    (<= 1e-6); served (per-segment upload and the final pull included) and
-   live steps/s over 5,000 timed steps; kernels per replayed served step;
+   live steps/s over 2,000 timed steps; kernels per replayed served step;
    ``serving_probe``'s JSON keys present and finite;
 26. the NumPy interpreter (``NumpyStepper``) on phase 11's model built
    with SSPSLAM_CLEANUP_F32=1 against the card's Simulator over 300 steps,
@@ -239,7 +239,19 @@ result line):
    included) and state leaf (<= 1e-6); then runs of 10, 10 and 20 s
    (steps/s, taken beside the CLI children; every array finite;
    ``slam_map_new``'s tracking cosine, item errors and area-query sims).
-   The VCO kernel launches 0 times.
+   The VCO kernel launches 0 times;
+33. the port's benchmark (run after phase 12, while the card is quiet),
+   its ``main`` in this process as ``python -m sspslam_tpu_torch.bench``
+   runs it: ``--model pi-fast`` at the defaults under one profiler pass
+   (6 ``vco_scan`` launches by the wrapper's count, by the bench row and
+   by the kernels named in the trace, and 0 calls of the plain version);
+   ``--model slam --reps 1 --timed-steps 10000 --baseline-reps 1
+   --no-scaled-spot`` (platform ``gpu``, ``accuracy_pass``, device us per
+   step > 0, ``flops_per_step`` equal to phase 11's model summary, mfu >
+   0, ``vs_baseline`` finite, 0 VCO launches); then
+   ``experiments.step_roofline.roofline`` once on the same model, beside
+   that run's device time (the same FLOPs, a bound below the measured
+   time, 0 VCO launches).
 
 Every CLI subprocess (phases 10, 13, 18, 21-26 and 28-30) runs its module
 as ``python -m`` does, through runpy, and then prints the VCO kernel's
@@ -251,13 +263,13 @@ three ``train_slam`` runs, 25's ``serving_probe``, 26's ``run_slam
 after phase 17, while the smoke's own process runs the in-process checks
 of phases 28-30, none of which is timed, and phase 32.
 
-The last eleven lines of standard output are one JSON object of the
+The last twelve lines of standard output are one JSON object of the
 Simulator's numbers, one of the SLAM numbers, one of phases 14-18
 (``family``), one of phases 19-21 (``scaled``), one of phases 22-24
 (``train``), one of phases 25-27 (``serving``), one of phases 28-30
-(``clis``), one of phases 31-32 (``sharded``, ``demos``), the card's name
-and power limit, one JSON object describing the kernel, and the result
-line.
+(``clis``), one of phases 31-32 (``sharded``, ``demos``), one of phase 33
+(``bench``), the card's name and power limit, one JSON object describing
+the kernel, and the result line.
 
 To compare the kernel of two checkouts on one card, time each in turns
 within one command (the other commit unpacked into a git-ignored
@@ -305,7 +317,7 @@ EAGER_WARM = 1_000    # the eager timing's warm-up segment (no capture)
 # timed steps of the SLAM-family Simulator paths (phases 11, 14-16, 19),
 # after one SIM_WARM-step warm-up segment (the graphs' capture included):
 # kept short so the smoke fits its time limit on a slow host (PERF.md)
-SIM_TIMED = 5_000
+SIM_TIMED = 2_000
 SIM_WARM = 2_000
 REPLAY_TOL = 1e-6     # graph replay vs eager step, max-abs over LONG steps
 PROFILE_STEPS = 20    # the counts per step read the same as over 100 steps
@@ -776,36 +788,27 @@ def timed_run(sim, probe, steps=TIMED, warm=CHUNK):
 
 def profile_steps(sim, eager):
     """CUDA kernels and device busy time per step over PROFILE_STEPS steps
-    (one torch.profiler pass after a warm-up): kernels, device events and
-    busy us per step, the busy share of the profiled window, and the six
-    kernels that took the most device time (name, us and calls per
-    step)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    (one torch.profiler pass after a warm-up, read by
+    ``experiments.device_time_probe.profile_steps``): kernels, device
+    events and busy us per step, the busy share of the profiled window,
+    and the six kernels that took the most device time (name, us and
+    calls per step)."""
+    from sspslam_tpu_torch.experiments.device_time_probe import \
+        profile_steps as profiled
     sim.reset()
     sim._eager = eager
     sim.preload_inputs(2 * PROFILE_STEPS)
     sim.run_steps(PROFILE_STEPS, segment_steps=PROFILE_STEPS)
     sim.sync()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
+
+    def run():
         sim.run_steps(PROFILE_STEPS, segment_steps=PROFILE_STEPS)
         sim.sync()
-        wall_us = (time.perf_counter() - t0) * 1e6
+    p = profiled(run, PROFILE_STEPS)
     sim._eager = False
-    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    kernels = [e for e in dev if not e.name.startswith(("Memcpy", "Memset"))]
-    busy_us = sum(e.time_range.elapsed_us() for e in dev)
-    by_name = {}
-    for e in kernels:
-        us, calls = by_name.get(e.name, (0.0, 0))
-        by_name[e.name] = (us + e.time_range.elapsed_us(), calls + 1)
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]
-    top = [(name[:80], us / PROFILE_STEPS, calls / PROFILE_STEPS)
-           for name, (us, calls) in top]
-    return (len(kernels) / PROFILE_STEPS, len(dev) / PROFILE_STEPS,
-            busy_us / PROFILE_STEPS, busy_us / wall_us, top)
+    top = [(name[:80], us, calls) for name, us, calls in p["top"]]
+    return (p["kernels_per_step"], p["events_per_step"],
+            p["busy_us_per_step"], p["busy_share"], top)
 
 
 def simulator_path(space, vco, fast_trace):
@@ -1171,13 +1174,11 @@ def replay_vs_eager(sim, probe, what):
 
 
 def tracking_cosine(space, out, path):
-    """bench.py's sanity metric: the mean over the last quarter of the world
-    of cos(PI output, encode(path)), the output's norm only."""
-    k = min(out.shape[0], path.shape[0])
-    real = space.encode(path[:k])
-    sims = np.sum(out[:k] * real, axis=1) / np.maximum(
-        np.linalg.norm(out[:k], axis=1), 1e-9)
-    return float(np.mean(sims[-k // 4:]))
+    """bench.py's sanity metric (``sspslam_tpu_torch.bench``'s): the mean
+    over the last quarter of the world of cos(PI output, encode(path)),
+    the output's norm only."""
+    from sspslam_tpu_torch.bench import tracking_cosine as cosine
+    return cosine(space, out, path)
 
 
 def hoisted_threshold(sim, probe):
@@ -1236,8 +1237,9 @@ def slam_path(space, vco):
     sim, probe, build_s = slam_simulator(space, world)
     n = sum(be.k * be.n if be.batched else be.n for be in sim.model.ensembles)
     log(f"SLAM build (d={space.ssp_dim}, {n} neurons): {build_s:.1f} s")
-    print_utilization_summary(sim.model)
-    out = {"neurons": n, "build_s": build_s}
+    rows = print_utilization_summary(sim.model)
+    out = {"neurons": n, "build_s": build_s,
+           "flops_per_step": float(sum(r["flops_per_step"] for r in rows))}
 
     # (a) graph replay vs eager
     out["graph_vs_eager_max_abs"], out["steps_per_s_eager"] = \
@@ -1600,7 +1602,7 @@ def pi_variants(space, vco):
     return out
 
 
-QUANT_TIMED = 5_000      # timed steps of each quantised SLAM (phase 19)
+QUANT_TIMED = 2_000      # timed steps of each quantised SLAM (phase 19)
 # int8 storage may cost the bench world's tracking cosine at most this
 # much against float32's (phase 11): on the card the cosine of one world
 # moves by up to 0.04 between runs that differ only in rounding (the
@@ -1608,7 +1610,7 @@ QUANT_TIMED = 5_000      # timed steps of each quantised SLAM (phase 19)
 # §6), so bench.py's absolute 0.93 is printed for int8, not gated
 QUANT_TRACKING_BAND = 0.05
 BATCHES = (1, 8, 32)     # episodes per batch (phase 20)
-BATCH_TIMED = 4_000      # timed batched steps (a multiple of BATCH_SEG)
+BATCH_TIMED = 2_000      # timed batched steps (a multiple of BATCH_SEG)
 BATCH_SEG = 2_000        # batched segment length: warm-up, then timed
 BATCH_REPLAY = 1_000     # batched replay vs eager steps
 BATCH_EPISODE_STEPS = 2_000   # each episode against a plain Simulator run
@@ -1771,18 +1773,15 @@ def episode_tables(sim, space, B):
 def batched_profile(runner):
     """Kernels and device busy us per replayed batched step over
     PROFILE_STEPS steps (one profiler pass, graphs already captured)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    runner.run(PROFILE_STEPS)
-    runner.sync()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    from sspslam_tpu_torch.experiments.device_time_probe import \
+        profile_steps as profiled
+
+    def run():
         runner.run(PROFILE_STEPS)
         runner.sync()
-    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    kernels = [e for e in dev if not e.name.startswith(("Memcpy", "Memset"))]
-    return (len(kernels) / PROFILE_STEPS,
-            sum(e.time_range.elapsed_us() for e in dev) / PROFILE_STEPS)
+    run()
+    p = profiled(run, PROFILE_STEPS)
+    return p["kernels_per_step"], p["busy_us_per_step"]
 
 
 def batched_episodes(space, vco):
@@ -2066,9 +2065,9 @@ def autograd_kernels(sim, probe, params, path):
     """CUDA kernels per step of TRAIN_PROFILE_STEPS steps of an episode
     under autograd (one torch.profiler pass after a warm-up): the forward
     pass alone, then forward and backward together."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     from sspslam_tpu_torch import train
+    from sspslam_tpu_torch.experiments.device_time_probe import \
+        profile_steps as profiled
     n = TRAIN_PROFILE_STEPS
     ep = train.make_episode_fn(sim, n, segment_steps=n, remat=False)
     xs = train.episode_inputs(sim, n)
@@ -2090,12 +2089,7 @@ def autograd_kernels(sim, probe, params, path):
     counts = []
     for backward in (False, True):
         run(backward)
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            run(backward)
-        counts.append(sum(
-            1 for e in prof.events() if e.device_type == DeviceType.CUDA
-            and not e.name.startswith(("Memcpy", "Memset"))) / n)
+        counts.append(profiled(lambda: run(backward), n)["kernels_per_step"])
     return counts
 
 
@@ -2484,7 +2478,7 @@ def closed_loop_phase(space, vco):
 SERVE_WARM = 2_000       # live steps before the export (phase 25)
 SERVE_STEPS = 2_000      # steps served against the live run
 SERVE_SEG = 1_000        # the bundle's segment length
-SERVE_TIMED = 5_000      # timed steps, served and live
+SERVE_TIMED = 2_000      # timed steps, served and live
 INTERP_STEPS = 300       # the interpreter against the card (phase 26)
 TRACE_STEPS = 100        # replayed SLAM steps traced by trace_run (27)
 SERVING_PROBE_ARGS = ("--timed-steps", "5000", "--segment-steps", "1000",
@@ -2548,21 +2542,18 @@ def replay_kernels(graph, reset):
     """CUDA kernels by name per step of ``graph`` (GRAPH_STEPS captured
     steps), replayed PROFILE_STEPS / GRAPH_STEPS times under one profiler
     pass, ``reset()`` first (the graphs read their tables from row 0)."""
-    from collections import Counter
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from sspslam_tpu_torch.experiments.device_time_probe import \
+        profile_steps as profiled
     from sspslam_tpu_torch.nef import Simulator
     reset()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+
+    def run():
         for _ in range(PROFILE_STEPS // Simulator.GRAPH_STEPS):
             graph.replay()
         torch.cuda.synchronize()
-    names = Counter(e.name for e in prof.events()
-                    if e.device_type == DeviceType.CUDA
-                    and not e.name.startswith(("Memcpy", "Memset")))
-    return {k: v / PROFILE_STEPS for k, v in names.items()}
+    p = profiled(run, PROFILE_STEPS, top=None)
+    return {name: calls for name, _, calls in p["top"]}
 
 
 def serving_phase(space, vco, children, slam):
@@ -3451,6 +3442,112 @@ def demos_phase(vco):
     return results
 
 
+# ---------------------------------------------------------------------------
+# Phase 33: the port's benchmark and its device-time and roofline probes
+# ---------------------------------------------------------------------------
+BENCH_SLAM_ARGS = ("--model", "slam", "--reps", "1", "--timed-steps",
+                   "10000", "--baseline-reps", "1", "--no-scaled-spot")
+# --model pi-fast at the defaults: one 10,000-step warm-up chunk and five
+# timed chunks
+BENCH_PI_FAST_LAUNCHES = 6
+
+
+def quiet_main(module, argv):
+    """``module.main(argv)`` with its standard output kept from this
+    script's (its log lines go to standard error); returns main's row."""
+    with contextlib.redirect_stdout(io.StringIO()):
+        return module.main(list(argv))
+
+
+def bench_phase(vco, slam):
+    """Phase 33 (see the module docstring); ``slam`` is phase 11's
+    numbers.  Returns the numbers of the bench JSON line."""
+    from sspslam_tpu_torch import bench
+    from sspslam_tpu_torch.experiments import step_roofline
+    from sspslam_tpu_torch.experiments.device_time_probe import \
+        profile_steps as profiled
+    out = {}
+
+    # --model pi-fast: the wrapper's count, the bench row's and the trace's
+    plain_calls = []
+    real_plain = vco.vco_scan_reference
+
+    def counted_plain(*a):
+        plain_calls.append(1)
+        return real_plain(*a)
+    rows = []
+    vco.vco_scan_reference = counted_plain
+    vco.vco_scan.launches = 0
+    t0 = time.perf_counter()
+    try:
+        trace = profiled(lambda: rows.append(
+            quiet_main(bench, ["--model", "pi-fast"])), 1, top=None)
+    finally:
+        vco.vco_scan_reference = real_plain
+    launches = vco.vco_scan.launches
+    row = rows[0]
+    traced = sum(calls for name, _, calls in trace["top"]
+                 if "vco_scan_kernel" in name)
+    log(f"bench --model pi-fast: {row['value']:.0f} steps/s in "
+        f"{time.perf_counter() - t0:.1f} s; vco_scan launches {launches} "
+        f"(row {row['vco_scan_launches']}, traced {traced:.0f}), plain "
+        f"version calls {len(plain_calls)}; {row['device_name']}, "
+        f"{row['power_limit_w']} W")
+    if not (launches == row["vco_scan_launches"] == traced
+            == BENCH_PI_FAST_LAUNCHES and not plain_calls
+            and row["platform"] == "gpu" and row["value"] > 0):
+        raise AssertionError(f"bench --model pi-fast: {launches} launches "
+                             f"(row {row['vco_scan_launches']}, traced "
+                             f"{traced}), {len(plain_calls)} plain calls, "
+                             f"row {row}")
+    out["pi_fast"] = {"steps_per_s": row["value"], "vco_scan_launches":
+                      launches, "traced_launches": traced,
+                      "plain_calls": len(plain_calls)}
+
+    # --model slam, shortened
+    vco.vco_scan.launches = 0
+    t0 = time.perf_counter()
+    row = quiet_main(bench, BENCH_SLAM_ARGS)
+    seconds = time.perf_counter() - t0
+    launches = vco.vco_scan.launches
+    log(f"bench {' '.join(BENCH_SLAM_ARGS)}: {json.dumps(row)}")
+    log(f"bench --model slam: {row['value']:.0f} steps/s, tracking "
+        f"{row['tracking_cosine']:.4f}, device {row['device_us_per_step']} "
+        f"us/step, {row['flops_per_step']:.0f} FLOP/step (phase 11: "
+        f"{slam['flops_per_step']:.0f}), mfu {row['mfu']:.3e}, vs_baseline "
+        f"{row['vs_baseline']}; {seconds:.1f} s; vco_scan launches "
+        f"{launches}")
+    if not (row["platform"] == "gpu" and row["accuracy_pass"]
+            and row["device_us_per_step"] is not None
+            and row["device_us_per_step"] > 0
+            and row["flops_per_step"] == slam["flops_per_step"]
+            and row["mfu"] > 0 and row["vs_baseline"] is not None
+            and np.isfinite(row["vs_baseline"]) and launches == 0
+            and row["vco_scan_launches"] == 0):
+        raise AssertionError(f"bench --model slam: {row}, {launches} VCO "
+                             f"launches")
+    out["slam"] = dict(row, seconds=seconds)
+
+    # the roofline of the same model, beside the bench's device time
+    vco.vco_scan.launches = 0
+    t0 = time.perf_counter()
+    sim = bench.build(bench.parse_args([]))[0]
+    roof = step_roofline.roofline(sim, row["device_us_per_step"])
+    del sim
+    launches = vco.vco_scan.launches
+    log(f"step_roofline: {json.dumps(roof)}; "
+        f"{time.perf_counter() - t0:.1f} s")
+    if not (roof["flops_per_step"] == slam["flops_per_step"]
+            and roof["bound_by"] in ("bytes", "operations")
+            and 0 < roof["roofline_us_per_step"]
+            < roof["measured_us_per_step"] and launches == 0):
+        raise AssertionError(f"step_roofline: {roof}, {launches} VCO "
+                             f"launches")
+    out["roofline"] = roof
+    out["vco_scan_launches"] = launches
+    return out
+
+
 def time_checkout(root: str) -> None:
     """``--time ROOT``: ms per CHUNK-step chunk of the ``vco_scan`` of the
     checkout at ``root``, at the cluster size it picks, on the main path's
@@ -3549,6 +3646,9 @@ def main() -> int:
     # 11-12. SLAM
     slam = slam_path(space, vco)
 
+    # 33. the port's benchmark and its probes, on the quiet card
+    bench = bench_phase(vco, slam)
+
     # 14-17. the rest of the model family
     family = family_models(space, vco)
     family["cleanup"] = cleanup_methods(vco)
@@ -3604,6 +3704,7 @@ def main() -> int:
     print(json.dumps({"serving": serving}), flush=True)
     print(json.dumps({"clis": clis}), flush=True)
     print(json.dumps({"sharded": sharded, "demos": demos}), flush=True)
+    print(json.dumps({"bench": bench}), flush=True)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"kernels": [{
         "name": "vco_scan", "route": "cuda",
@@ -3623,7 +3724,10 @@ def main() -> int:
         "launched_by": ["FastPathIntegrator.run (phase 5, bench.py --model "
                         "pi-fast traffic)",
                         "make_sharded_vco_scan (phase 31): one launch per "
-                        "shard per chunk"],
+                        "shard per chunk",
+                        "python -m sspslam_tpu_torch.bench --model pi-fast "
+                        "(phase 33)"],
+        "launches_on_bench_pi_fast": bench["pi_fast"]["vco_scan_launches"],
         "launches_on_sharded_path": {
             S: r["launches_per_chunk"] for S, r in sharded.items()},
         "sharded_ms_by_shards": {S: r["ms"] for S, r in sharded.items()},
@@ -3702,7 +3806,10 @@ def main() -> int:
                 clis["analyses"]["redecode_scaled"][
                     "vco_scan_launches"],
             "run_pathint_gif, run_slam_map_gif, slam_map_new (phase 32)":
-                demos["vco_scan_launches"]}}]}))
+                demos["vco_scan_launches"],
+            "bench --model slam (phase 33)":
+                bench["slam"]["vco_scan_launches"],
+            "step_roofline (phase 33)": bench["vco_scan_launches"]}}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": card,
         "count": torch.cuda.device_count()}}))

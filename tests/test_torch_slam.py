@@ -452,9 +452,8 @@ def test_run_slam_cli_matches_jax(tmp_path):
                 prefix
 
 
-def test_run_slam_plot_not_ported(tmp_path, monkeypatch):
-    """(Named when ``--plot`` raised; it is ported now.) ``run_slam
-    --plot`` on the CPU writes the JAX CLI's figure,
+def test_run_slam_plot_writes_figure(tmp_path, monkeypatch):
+    """``run_slam --plot`` on the CPU writes the JAX CLI's figure,
     ``figures/slam_<backend>.png`` under the working directory."""
     from torch_parity import run_port_cli
     monkeypatch.chdir(tmp_path)

@@ -378,13 +378,12 @@ def test_clis_match_jax(tmp_path):
                            for line in pout.splitlines())
 
 
-def test_run_slamview_plot_and_numpy_backend_not_ported(tmp_path,
-                                                        monkeypatch):
-    """(Named when ``--plot`` raised; it is ported now.) On the CPU
-    ``run_slamview --plot`` writes ``figures/slamview_<seed>.png`` and
-    ``run_slam --backend numpy --plot`` (the NumPy interpreter's run)
-    ``figures/slam_numpy.png`` under the working directory, the JAX CLIs'
-    figures."""
+def test_run_slamview_and_numpy_backend_plot_write_figures(tmp_path,
+                                                           monkeypatch):
+    """On the CPU ``run_slamview --plot`` writes
+    ``figures/slamview_<seed>.png`` and ``run_slam --backend numpy --plot``
+    (the NumPy interpreter's run) ``figures/slam_numpy.png`` under the
+    working directory, the JAX CLIs' figures."""
     from torch_parity import run_port_cli
     monkeypatch.chdir(tmp_path)
     for module, flags, png in (
