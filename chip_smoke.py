@@ -238,8 +238,10 @@ result line):
    over 300 steps, every probe (the sparse snapshots of learned weights
    included) and state leaf (<= 1e-6); then runs of 10, 10 and 20 s
    (steps/s, taken beside the CLI children; every array finite;
-   ``slam_map_new``'s tracking cosine, item errors and area-query sims).
-   The VCO kernel launches 0 times;
+   ``slam_map_new``'s tracking cosine, item errors and area-query sims,
+   its tracking within 0.04 of the JAX script's at the same T and widths
+   from ``tests/reference/full_width_jax.npz``, its item errors printed
+   beside JAX's).  The VCO kernel launches 0 times;
 33. the port's benchmark (run after phase 12, while the card is quiet),
    its ``main`` in this process as ``python -m sspslam_tpu_torch.bench``
    runs it: ``--model pi-fast`` at the defaults under one profiler pass
@@ -251,7 +253,24 @@ result line):
    0, ``vs_baseline`` finite, 0 VCO launches); then
    ``experiments.step_roofline.roofline`` once on the same model, beside
    that run's device time (the same FLOPs, a bound below the measured
-   time, 0 VCO launches).
+   time, 0 VCO launches);
+34. the JAX package's full-width reference,
+   ``tests/reference/full_width_jax.npz`` (made on the CPU by
+   ``tests/make_jax_reference.py``; read here as data).  Fast path, on
+   phase 5's 60,000-step run (after phase 6, no extra card time): the
+   built parameters' checksums (sum, L2 and L1 of every leaf; 1e-6
+   relative for host solves and seeded draws, 1e-4 for float32 device
+   solves), the first 40 rows within 2e-4 of JAX's Pallas kernel in
+   interpret mode, the decoded position at each of the six chunk ends
+   within 0.1 of JAX's, the median |diff| of every 1,000th row printed.
+   SLAM, beside the CLI children (with phases 28-30 and 32): for each of
+   the file's seeds (0-4), ``bench.build`` on the card and its 14,000-step
+   world replayed from the fresh state: the checksums; the first 300 probe
+   rows against JAX's by the spike-flip bounds (median, q80 and peak held,
+   the other two printed); the tracking cosine within 0.04 of JAX's per
+   seed and the five seeds' means within 0.02; the decoded position at
+   every 1,000th step against JAX's (largest, median, the first step past
+   0.1; printed).  Both sides keep the bf16 clean-up.  0 VCO launches.
 
 Every CLI subprocess (phases 10, 13, 18, 21-26 and 28-30) runs its module
 as ``python -m`` does, through runpy, and then prints the VCO kernel's
@@ -261,15 +280,16 @@ three ``train_slam`` runs, 25's ``serving_probe``, 26's ``run_slam
 --backend numpy`` and the CLIs of phases 28-30 but ``check_anchor_enters`` and
 ``redecode_scaled``, which read files phases 21 and 28 write) run together
 after phase 17, while the smoke's own process runs the in-process checks
-of phases 28-30, none of which is timed, and phase 32.
+of phases 28-30, none of which is timed, phase 32 and phase 34's SLAM
+worlds.
 
-The last twelve lines of standard output are one JSON object of the
+The last thirteen lines of standard output are one JSON object of the
 Simulator's numbers, one of the SLAM numbers, one of phases 14-18
 (``family``), one of phases 19-21 (``scaled``), one of phases 22-24
 (``train``), one of phases 25-27 (``serving``), one of phases 28-30
 (``clis``), one of phases 31-32 (``sharded``, ``demos``), one of phase 33
-(``bench``), the card's name and power limit, one JSON object describing
-the kernel, and the result line.
+(``bench``), one of phase 34 (``reference``), the card's name and power
+limit, one JSON object describing the kernel, and the result line.
 
 To compare the kernel of two checkouts on one card, time each in turns
 within one command (the other commit unpacked into a git-ignored
@@ -1126,26 +1146,29 @@ def untimed_jobs():
     return jobs, envs
 
 
-def children_and_checks(vco, work):
+def children_and_checks(vco, work, ref):
     """``untimed_jobs``' children and phases 28-30's CLIs
     (``new_cli_jobs``) run together after phase 17, while this process
     runs phases 28-30's own checks, none of them timed
-    (``recovery_schedule``, ``maps_in_process``, ``flagship_mflop``), and
+    (``recovery_schedule``, ``maps_in_process``, ``flagship_mflop``),
     phase 32's demos (``demos_phase``: their steps/s are taken beside the
-    children); ``work`` is the directory the CLIs write their files into.
-    Returns ({key: counted_result}, the four checks' results)."""
+    children) and phase 34's SLAM worlds against the JAX reference ``ref``
+    (``reference_slam``); ``work`` is the directory the CLIs write their
+    files into.  Returns ({key: counted_result}, the five checks'
+    results)."""
     jobs, envs = untimed_jobs()
     t0 = time.perf_counter()
     pending = start_together({**jobs, **new_cli_jobs(work)}, envs)
     try:
         checks = (recovery_schedule(vco), maps_in_process(vco),
-                  flagship_mflop(vco), demos_phase(vco))
+                  flagship_mflop(vco), demos_phase(vco, ref),
+                  reference_slam(ref, vco))
         children = wait_together(pending, timeout=1000)
     except BaseException:
         stop_children(pending)
         raise
-    log(f"{len(children)} CLI children together, beside phases 28-30's "
-        f"and 32's checks: {time.perf_counter() - t0:.1f} s")
+    log(f"{len(children)} CLI children together, beside phases 28-30's, "
+        f"32's and 34's checks: {time.perf_counter() - t0:.1f} s")
     return children, checks
 
 
@@ -3268,6 +3291,9 @@ DEMO_REPLAY = 300         # each demo's replay vs eager steps (phase 32)
 DEMOS = (("run_pathint_gif", ("--T", "10")),
          ("run_slam_map_gif", ("--T", "10")),
          ("slam_map_new", ("--T", "20")))
+# slam_map_new's tracking cosine against the JAX script's at T = 20 s (the
+# most one world moves with rounding alone, PERF.md §6)
+MAP_NEW_TRACKING_TOL = 0.04
 
 
 def sharded_scan(vco, fpi, space, unsharded, unsharded_ms, num_sms):
@@ -3386,14 +3412,33 @@ def _all_finite(what, *arrays):
             raise AssertionError(f"{what}: non-finite output")
 
 
-def demos_phase(vco):
+def map_new_vs_jax(ref, res, T):
+    """slam_map_new's card run against the JAX script's printed numbers
+    at the same T (``tests/make_jax_reference.py``): tracking within
+    MAP_NEW_TRACKING_TOL, item errors printed."""
+    jax_cos = float(ref["slam_map_new_tracking"])
+    jax_errs = [float(e) for e in ref["slam_map_new_item_errors"]]
+    errs = [float(e) for e in res["item_errors"]]
+    log(f"  slam_map_new at T = {T:g} s vs the JAX script's: tracking "
+        f"{res['tracking']:.4f} against {jax_cos:.3f} (tol "
+        f"{MAP_NEW_TRACKING_TOL}); item errors "
+        f"{[round(e, 3) for e in errs]} against {jax_errs} (printed)")
+    if not abs(res["tracking"] - jax_cos) <= MAP_NEW_TRACKING_TOL:
+        raise AssertionError(f"slam_map_new tracking {res['tracking']} "
+                             f"against the JAX script's {jax_cos}")
+    return {"jax_tracking": jax_cos, "jax_item_errors": jax_errs}
+
+
+def demos_phase(vco, ref):
     """Phase 32, in process: the three simulating demos' ``build`` and
     ``simulate`` (what their scripts run before rendering) on the card at
     their default widths: replay vs eager over DEMO_REPLAY steps
     (``demo_replay``), then a shortened run (DEMOS' flags) timed by the
     scripts' own ``simulate``, its arrays finite; slam_map_new's tracking
-    cosine, item errors and area-query sims printed.  The VCO kernel
-    launches 0 times.  Returns {demo: numbers}."""
+    cosine, item errors and area-query sims printed, and its tracking
+    within MAP_NEW_TRACKING_TOL of the JAX script's at the same T and
+    widths (the JAX reference ``ref``), its item errors printed beside
+    JAX's.  The VCO kernel launches 0 times.  Returns {demo: numbers}."""
     import importlib
     results = {}
     vco.vco_scan.launches = 0
@@ -3430,6 +3475,7 @@ def demos_phase(vco):
                        area_sims=[float(x) for x in res["area_sims"]])
             for line in res["lines"]:
                 log(f"  {name}: {line.strip()}")
+            out.update(map_new_vs_jax(ref, res, float(args.T)))
         log(f"{name} (T = {args.T} s, {out['neurons']} neurons): build "
             f"{build_s:.1f} s, {res['steps_per_s']:.0f} steps/s "
             f"({res['seconds']:.1f} s)")
@@ -3548,6 +3594,212 @@ def bench_phase(vco, slam):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 34: the card against the JAX package's full-width reference
+# ---------------------------------------------------------------------------
+# Made on the CPU from the JAX package by tests/make_jax_reference.py; the
+# card's machine has no JAX, so the reference travels as this file.
+REFERENCE = Path(__file__).resolve().parent / "tests" / "reference" / \
+    "full_width_jax.npz"
+HOST_LEAF_RTOL = 1e-6     # host solves and seeded draws (the same NumPy)
+DEVICE_LEAF_RTOL = 1e-4   # float32 device solves (test_torch_builder.py)
+# one world's tracking cosine moves by up to 0.04 with rounding alone
+# (PERF.md §6); the mean of five worlds by that over sqrt(5)
+TRACKING_SEED_TOL = 0.04
+TRACKING_MEAN_TOL = 0.02
+REFERENCE_ROWS = 300      # the first rows held to the spike-flip bounds
+EVERY = 1_000             # the rows decoded against the reference's
+
+
+def load_reference():
+    """The reference's arrays, {key: ndarray}."""
+    with np.load(REFERENCE) as f:
+        return {k: f[k] for k in f.files}
+
+
+def flat_leaves(tree, path=""):
+    """(slash path, leaf) of a parameter tree as the reference's generator
+    walks the JAX package's: dict keys sorted, list and tuple items by
+    index, a NamedTuple by field name."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from flat_leaves(tree[k], f"{path}/{k}" if path else str(k))
+    elif isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        for k in tree._fields:
+            yield from flat_leaves(getattr(tree, k),
+                                   f"{path}/{k}" if path else k)
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from flat_leaves(v, f"{path}/{i}" if path else str(i))
+    else:
+        yield path, tree
+
+
+def leaf_checksum(x):
+    """[sum, L2 norm, L1 norm] of a leaf (tensor of any dtype and device,
+    array or number), in float64 on the host."""
+    if torch.is_tensor(x):
+        a = x.detach().to("cpu", torch.float64).reshape(-1).numpy()
+    else:
+        a = np.asarray(x, np.float64).reshape(-1)
+    return np.array([a.sum(), np.sqrt(np.sum(a * a)), np.abs(a).sum()])
+
+
+def check_leaf_sums(params, paths, sums, device, what):
+    """The checksums of ``params`` against the reference's (``paths``,
+    ``sums``, ``device``): the same leaf paths, and for each leaf
+    |sum - ref| / ref L1 and |L2 - ref| / ref L2 within HOST_LEAF_RTOL, or
+    DEVICE_LEAF_RTOL for decoders solved in float32 on a device.  Returns
+    the worst relative error of each kind."""
+    own = dict(flat_leaves(params))
+    paths = [str(p) for p in paths]
+    if set(own) != set(paths):
+        raise AssertionError(f"{what}: leaf paths differ: port only "
+                             f"{sorted(set(own) - set(paths))}, reference "
+                             f"only {sorted(set(paths) - set(own))}")
+
+    def rel(diff, scale):
+        return diff / scale if scale > 0 else (0.0 if diff == 0 else np.inf)
+
+    worst = {"host": 0.0, "device": 0.0}
+    for path, want, dev in zip(paths, sums, device):
+        got = leaf_checksum(own[path])
+        err = max(rel(abs(got[0] - want[0]), want[2]),
+                  rel(abs(got[1] - want[1]), want[1]))
+        kind = "device" if dev else "host"
+        tol = DEVICE_LEAF_RTOL if dev else HOST_LEAF_RTOL
+        if not err <= tol:
+            raise AssertionError(f"{what}: leaf {path} ({kind} solve): "
+                                 f"checksum {got.tolist()} against "
+                                 f"{list(want)}, relative {err} > {tol}")
+        worst[kind] = max(worst[kind], err)
+    return worst
+
+
+def first_above(dists, steps, tol):
+    """The first step whose distance passes ``tol``, or None."""
+    over = np.flatnonzero(np.asarray(dists) > tol)
+    return int(steps[over[0]]) if over.size else None
+
+
+def reference_fast(ref, fpi, space, trace):
+    """Phase 34, fast path (no extra card time): phase 5's main-path run of
+    60,000 steps against JAX's Pallas kernel in interpret mode over the same
+    velocities: the built parameters' checksums; the first 40 rows within
+    SHORT_TOL; the decoded position at each of the six chunk ends within
+    DRIFT_TOL of JAX's; the median |diff| of the rows at every 1,000th step
+    printed beside LONG_MEDIAN_TOL.  Returns the numbers."""
+    worst = check_leaf_sums(fpi.params, ref["fast_leaf_paths"],
+                            ref["fast_leaf_sums"], ref["fast_leaf_device"],
+                            "fast path")
+    first = float(np.abs(trace[:SHORT] - ref["fast_rows40"]).max())
+    rows = trace[EVERY - 1::EVERY]
+    med = float(np.median(np.abs(rows - ref["fast_rows_every1000"])))
+    ends = decode(space, trace[CHUNK - 1::CHUNK])
+    dists = np.linalg.norm(ends - ref["fast_decoded_every10000"], axis=1)
+    log(f"reference, fast path vs JAX's Pallas kernel (interpret mode) over "
+        f"{len(trace)} steps: leaf checksums host {worst['host']:.2e} (tol "
+        f"{HOST_LEAF_RTOL}), device-solved {worst['device']:.2e} (tol "
+        f"{DEVICE_LEAF_RTOL}); first {SHORT} rows max-abs {first:.3e} (tol "
+        f"{SHORT_TOL}); every {EVERY}th row median |diff| {med:.3e} (printed "
+        f"beside {LONG_MEDIAN_TOL}); decoded chunk ends "
+        f"{[round(float(x), 4) for x in dists]} (tol {DRIFT_TOL})")
+    if not (first <= SHORT_TOL and np.all(dists <= DRIFT_TOL)):
+        raise AssertionError(f"fast path vs JAX: first {SHORT} rows {first},"
+                             f" chunk-end decoded distances {dists}")
+    return {"leaf_rel_err": worst, "first_rows_max_abs": first,
+            "every_1000_median_abs": med,
+            "chunk_end_decoded_diff": [float(x) for x in dists]}
+
+
+def reference_slam(ref, vco):
+    """Phase 34, SLAM: for each of the reference's seeds, ``bench.build`` on
+    the card (TF32 off) and the 14,000-step world replayed from the fresh
+    state: the build's parameter checksums; the first REFERENCE_ROWS probe
+    rows against JAX's by the spike-flip bounds (median, q80 and peak held;
+    the other two printed); the tracking cosine within TRACKING_SEED_TOL of
+    JAX's, and the five seeds' means within TRACKING_MEAN_TOL; the decoded
+    position at every EVERY-th step against JAX's (largest, median, first
+    step past DRIFT_TOL; printed).  Both sides keep the bf16 clean-up.
+    Launches the VCO kernel 0 times.  Returns the numbers."""
+    from sspslam_tpu_torch import bench
+    t0 = time.perf_counter()
+    vco.vco_scan.launches = 0
+    seeds, out = [int(s) for s in ref["slam_seeds"]], {}
+    for s in seeds:
+        p = f"slam_s{s}_"
+        t1 = time.perf_counter()
+        with contextlib.redirect_stderr(io.StringIO()):
+            sim, probe, space, path = bench.build(
+                bench.parse_args(["--device", "cuda", "--seed", str(s)]))
+        build_s = time.perf_counter() - t1
+        worst = check_leaf_sums(sim.params, ref[p + "leaf_paths"],
+                                ref[p + "leaf_sums"], ref[p + "leaf_device"],
+                                f"SLAM seed {s}")
+        sim.run_steps(WORLD_STEPS)
+        trace = sim.data[probe]
+        if not (trace.shape == (WORLD_STEPS, space.ssp_dim)
+                and np.all(np.isfinite(trace))):
+            raise AssertionError(f"SLAM seed {s}: trace {trace.shape} is "
+                                 f"not finite")
+        cos = tracking_cosine(space, trace, path)
+        jax_cos = float(ref[p + "tracking"])
+        flips = spike_flip_stats(trace[:REFERENCE_ROWS], ref[p + "rows300"])
+        steps = np.arange(EVERY - 1, WORLD_STEPS, EVERY)
+        dists = np.linalg.norm(decode(space, trace[steps]) -
+                               ref[p + "decoded_every1000"], axis=1)
+        seconds = time.perf_counter() - t1
+        log(f"reference, SLAM seed {s}: build {build_s:.1f} s, leaf "
+            f"checksums host {worst['host']:.2e}, device-solved "
+            f"{worst['device']:.2e}; first {REFERENCE_ROWS} rows "
+            f"median {flips['median']:.2e} (tol {SPIKE_ATOL}), q80 "
+            f"{flips['q80']:.2e} (tol {5 * SPIKE_ATOL}), peak "
+            f"{flips['peak']:.2e} (tol 0.25), printed: above 5 atol "
+            f"{flips['above_5_atol']:.3f}, longest run "
+            f"{flips['longest_run']}, first differing step "
+            f"{flips['first_differing_step']}; tracking port {cos:.4f}, JAX "
+            f"{jax_cos:.4f}, |diff| {abs(cos - jax_cos):.4f} (tol "
+            f"{TRACKING_SEED_TOL}); decoded every {EVERY}th step: largest "
+            f"{dists.max():.4f}, median {np.median(dists):.4f}, first past "
+            f"{DRIFT_TOL} at step {first_above(dists, steps, DRIFT_TOL)}; "
+            f"{seconds:.1f} s")
+        if not (flips["median"] < SPIKE_ATOL and flips["q80"] < 5 * SPIKE_ATOL
+                and flips["peak"] < 0.25):
+            raise AssertionError(f"SLAM seed {s}: first {REFERENCE_ROWS} rows "
+                                 f"outside the spike-flip bounds: {flips}")
+        if not abs(cos - jax_cos) <= TRACKING_SEED_TOL:
+            raise AssertionError(f"SLAM seed {s}: tracking {cos} against "
+                                 f"JAX's {jax_cos}")
+        out[str(s)] = {"tracking": cos, "jax_tracking": jax_cos,
+                       "build_s": build_s, "leaf_rel_err": worst,
+                       "first_rows": flips,
+                       "decoded_diff_max": float(dists.max()),
+                       "decoded_diff_median": float(np.median(dists)),
+                       "decoded_first_past_tol": first_above(dists, steps,
+                                                             DRIFT_TOL),
+                       "seconds": seconds}
+        del sim, trace
+        torch.cuda.empty_cache()
+    mean_port = float(np.mean([out[str(s)]["tracking"] for s in seeds]))
+    mean_jax = float(np.mean([out[str(s)]["jax_tracking"] for s in seeds]))
+    launches = vco.vco_scan.launches
+    seconds = time.perf_counter() - t0
+    log(f"reference, SLAM over seeds {seeds}: mean tracking port "
+        f"{mean_port:.4f}, JAX {mean_jax:.4f}, |diff| "
+        f"{abs(mean_port - mean_jax):.4f} (tol {TRACKING_MEAN_TOL}); "
+        f"{launches} VCO launches; {seconds:.1f} s")
+    if not abs(mean_port - mean_jax) <= TRACKING_MEAN_TOL:
+        raise AssertionError(f"SLAM mean tracking {mean_port} against JAX's "
+                             f"{mean_jax}")
+    if launches != 0:
+        raise AssertionError(f"the reference's SLAM runs launched vco_scan "
+                             f"{launches} times")
+    return {"seeds": out, "mean_tracking": mean_port,
+            "jax_mean_tracking": mean_jax,
+            "mean_tracking_diff": mean_port - mean_jax,
+            "vco_scan_launches": launches, "seconds": seconds}
+
+
 def time_checkout(root: str) -> None:
     """``--time ROOT``: ms per CHUNK-step chunk of the ``vco_scan`` of the
     checkout at ``root``, at the cluster size it picks, on the main path's
@@ -3631,6 +3883,10 @@ def main() -> int:
     # 6. whole run against the other cluster size
     other, ends = whole_run(vco, fpi, space, chosen, trace)
 
+    # 34, fast path: the same run against JAX's Pallas kernel
+    ref = load_reference()
+    reference = {"fast_path": reference_fast(ref, fpi, space, trace)}
+
     # 7. accuracy
     accuracy(HexagonalSSPSpace, FastPathIntegrator)
 
@@ -3658,8 +3914,8 @@ def main() -> int:
     # together beside 28-30's in-process checks; ``work`` holds the npz
     # files the CLIs of phases 21 and 28 write for 28 and 30 to read
     work = tempfile.mkdtemp(prefix="chip_smoke_")
-    children, (schedule, maps, flagship, demos) = children_and_checks(vco,
-                                                                     work)
+    children, (schedule, maps, flagship, demos, reference["slam"]) = \
+        children_and_checks(vco, work, ref)
     simulator["run_pathint"] = cli_errors("run_pathint",
                                           *children["run_pathint"])
     slam["run_slam"] = cli_errors("run_slam", *children["run_slam"])
@@ -3705,6 +3961,7 @@ def main() -> int:
     print(json.dumps({"clis": clis}), flush=True)
     print(json.dumps({"sharded": sharded, "demos": demos}), flush=True)
     print(json.dumps({"bench": bench}), flush=True)
+    print(json.dumps({"reference": reference}), flush=True)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"kernels": [{
         "name": "vco_scan", "route": "cuda",
@@ -3721,6 +3978,7 @@ def main() -> int:
             for width, times in swept.items()},
         "whole_run_vs_cluster": other,
         "whole_run_decoded_diff": ends,
+        "whole_run_vs_jax_pallas": reference["fast_path"],
         "launched_by": ["FastPathIntegrator.run (phase 5, bench.py --model "
                         "pi-fast traffic)",
                         "make_sharded_vco_scan (phase 31): one launch per "

@@ -13,8 +13,10 @@ phase 15's network) in place of ``SLAMNetwork``.
 The defaults are a reduced width (ssp_dim 97, 200 LIF per VCO, memory 300,
 30 neurons per circular-convolution dimension, clean-up over 50 x 50
 samples in bf16); pass bench.py's own (800, 970, 100, 100) for the full
-width, which needs a large host.  Prints one JSON line.  An accuracy, not
-a time: the card's figure at full width is chip_smoke.py's phase 11.
+width: the JAX side steps it at about 750 steps/s on an 8-core host (about
+30 s a world; tests/make_jax_reference.py keeps JAX's full-width runs of
+seeds 0-4).  Prints one JSON line.  An accuracy, not a time: the card's
+figures at full width are chip_smoke.py's phases 11 and 34.
 """
 
 import argparse
