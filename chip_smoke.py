@@ -258,19 +258,19 @@ result line):
    ``tests/reference/full_width_jax.npz`` (made on the CPU by
    ``tests/make_jax_reference.py``; read here as data).  Fast path, on
    phase 5's 60,000-step run (after phase 6, no extra card time): the
-   built parameters' checksums (sum, L2 and L1 of every leaf; 1e-6
-   relative for host solves and seeded draws, 1e-4 for float32 device
-   solves), the first 40 rows within 2e-4 of JAX's Pallas kernel in
-   interpret mode, the decoded position at each of the six chunk ends
-   within 0.1 of JAX's, the median |diff| of every 1,000th row printed.
-   SLAM, beside the CLI children (with phases 28-30 and 32): for each of
-   the file's seeds (0-4), ``bench.build`` on the card and its 14,000-step
-   world replayed from the fresh state: the checksums; the first 300 probe
-   rows against JAX's by the spike-flip bounds (median, q80 and peak held,
-   the other two printed); the tracking cosine within 0.04 of JAX's per
-   seed and the five seeds' means within 0.02; the decoded position at
-   every 1,000th step against JAX's (largest, median, the first step past
-   0.1; printed).  Both sides keep the bf16 clean-up.  0 VCO launches.
+   built parameters' checksums (sum, L2, L1 and a position-weighted sum
+   of every leaf; 1e-6 relative for host solves and seeded draws, 1e-4
+   for float32 device solves), the first 40 rows within 2e-4 of JAX's
+   Pallas kernel in interpret mode, the decoded position at each of the
+   six chunk ends within 0.1 of JAX's, the median |diff| of every 1,000th
+   row printed.  SLAM, beside the CLI children (with phases 28-30 and
+   32): for each of the reference's seeds (0-4), ``bench.build`` on the
+   card and its 14,000-step world replayed from the fresh state: the
+   checksums; the first 300 probe rows against JAX's by the spike-flip
+   bounds (median, q80 and peak held, the other two printed); the
+   tracking cosine within 0.04 of JAX's per seed and the five seeds'
+   means within 0.02; the decoded position at every 1,000th step against
+   JAX's (largest, median, the first step past 0.1; printed).  Both sides keep the bf16 clean-up.  0 VCO launches.
 
 Every CLI subprocess (phases 10, 13, 18, 21-26 and 28-30) runs its module
 as ``python -m`` does, through runpy, and then prints the VCO kernel's
@@ -3607,6 +3607,7 @@ DEVICE_LEAF_RTOL = 1e-4   # float32 device solves (test_torch_builder.py)
 # (PERF.md §6); the mean of five worlds by that over sqrt(5)
 TRACKING_SEED_TOL = 0.04
 TRACKING_MEAN_TOL = 0.02
+REFERENCE_SEEDS = (0, 1, 2, 3, 4)   # the SLAM worlds of the reference
 REFERENCE_ROWS = 300      # the first rows held to the spike-flip bounds
 EVERY = 1_000             # the rows decoded against the reference's
 
@@ -3636,21 +3637,27 @@ def flat_leaves(tree, path=""):
 
 
 def leaf_checksum(x):
-    """[sum, L2 norm, L1 norm] of a leaf (tensor of any dtype and device,
-    array or number), in float64 on the host."""
+    """[sum, L2 norm, L1 norm, weighted sum] of a leaf (tensor of any dtype
+    and device, array or number), in float64 on the host.  The weighted
+    sum, of the flattened leaf with the weights ``arange(n) % 7 + 1``,
+    changes when a leaf's values are permuted or transposed; the other
+    three do not."""
     if torch.is_tensor(x):
         a = x.detach().to("cpu", torch.float64).reshape(-1).numpy()
     else:
         a = np.asarray(x, np.float64).reshape(-1)
-    return np.array([a.sum(), np.sqrt(np.sum(a * a)), np.abs(a).sum()])
+    weights = np.arange(a.size) % 7 + 1
+    return np.array([a.sum(), np.sqrt(np.sum(a * a)), np.abs(a).sum(),
+                     np.dot(a, weights)])
 
 
 def check_leaf_sums(params, paths, sums, device, what):
     """The checksums of ``params`` against the reference's (``paths``,
     ``sums``, ``device``): the same leaf paths, and for each leaf
-    |sum - ref| / ref L1 and |L2 - ref| / ref L2 within HOST_LEAF_RTOL, or
-    DEVICE_LEAF_RTOL for decoders solved in float32 on a device.  Returns
-    the worst relative error of each kind."""
+    |sum - ref| / ref L1, |L2 - ref| / ref L2 and |weighted sum - ref| /
+    ref L1 within HOST_LEAF_RTOL, or DEVICE_LEAF_RTOL for decoders solved
+    in float32 on a device.  Returns the worst relative error of each
+    kind."""
     own = dict(flat_leaves(params))
     paths = [str(p) for p in paths]
     if set(own) != set(paths):
@@ -3665,7 +3672,8 @@ def check_leaf_sums(params, paths, sums, device, what):
     for path, want, dev in zip(paths, sums, device):
         got = leaf_checksum(own[path])
         err = max(rel(abs(got[0] - want[0]), want[2]),
-                  rel(abs(got[1] - want[1]), want[1]))
+                  rel(abs(got[1] - want[1]), want[1]),
+                  rel(abs(got[3] - want[3]), want[2]))
         kind = "device" if dev else "host"
         tol = DEVICE_LEAF_RTOL if dev else HOST_LEAF_RTOL
         if not err <= tol:
@@ -3674,6 +3682,18 @@ def check_leaf_sums(params, paths, sums, device, what):
                                  f"{list(want)}, relative {err} > {tol}")
         worst[kind] = max(worst[kind], err)
     return worst
+
+
+def check_first_rows(trace, want, what):
+    """The first REFERENCE_ROWS rows of a SLAM probe ``trace`` against the
+    reference's ``want``: spike_flip_check's q80 and peak bounds and the
+    median below SPIKE_ATOL (the other two bounds are not held: one
+    near-threshold spike flip breaks them).  Returns spike_flip_stats."""
+    st = spike_flip_check(trace[:REFERENCE_ROWS], want, what, whole=False)
+    if not st["median"] < SPIKE_ATOL:
+        raise AssertionError(f"{what}: median {st['median']} of the first "
+                             f"{REFERENCE_ROWS} rows >= {SPIKE_ATOL}: {st}")
+    return st
 
 
 def first_above(dists, steps, tol):
@@ -3713,7 +3733,7 @@ def reference_fast(ref, fpi, space, trace):
 
 
 def reference_slam(ref, vco):
-    """Phase 34, SLAM: for each of the reference's seeds, ``bench.build`` on
+    """Phase 34, SLAM: for each of REFERENCE_SEEDS, ``bench.build`` on
     the card (TF32 off) and the 14,000-step world replayed from the fresh
     state: the build's parameter checksums; the first REFERENCE_ROWS probe
     rows against JAX's by the spike-flip bounds (median, q80 and peak held;
@@ -3725,8 +3745,8 @@ def reference_slam(ref, vco):
     from sspslam_tpu_torch import bench
     t0 = time.perf_counter()
     vco.vco_scan.launches = 0
-    seeds, out = [int(s) for s in ref["slam_seeds"]], {}
-    for s in seeds:
+    out = {}
+    for s in REFERENCE_SEEDS:
         p = f"slam_s{s}_"
         t1 = time.perf_counter()
         with contextlib.redirect_stderr(io.StringIO()):
@@ -3744,7 +3764,7 @@ def reference_slam(ref, vco):
                                  f"not finite")
         cos = tracking_cosine(space, trace, path)
         jax_cos = float(ref[p + "tracking"])
-        flips = spike_flip_stats(trace[:REFERENCE_ROWS], ref[p + "rows300"])
+        flips = check_first_rows(trace, ref[p + "rows300"], f"SLAM seed {s}")
         steps = np.arange(EVERY - 1, WORLD_STEPS, EVERY)
         dists = np.linalg.norm(decode(space, trace[steps]) -
                                ref[p + "decoded_every1000"], axis=1)
@@ -3763,10 +3783,6 @@ def reference_slam(ref, vco):
             f"{dists.max():.4f}, median {np.median(dists):.4f}, first past "
             f"{DRIFT_TOL} at step {first_above(dists, steps, DRIFT_TOL)}; "
             f"{seconds:.1f} s")
-        if not (flips["median"] < SPIKE_ATOL and flips["q80"] < 5 * SPIKE_ATOL
-                and flips["peak"] < 0.25):
-            raise AssertionError(f"SLAM seed {s}: first {REFERENCE_ROWS} rows "
-                                 f"outside the spike-flip bounds: {flips}")
         if not abs(cos - jax_cos) <= TRACKING_SEED_TOL:
             raise AssertionError(f"SLAM seed {s}: tracking {cos} against "
                                  f"JAX's {jax_cos}")
@@ -3780,12 +3796,12 @@ def reference_slam(ref, vco):
                        "seconds": seconds}
         del sim, trace
         torch.cuda.empty_cache()
-    mean_port = float(np.mean([out[str(s)]["tracking"] for s in seeds]))
-    mean_jax = float(np.mean([out[str(s)]["jax_tracking"] for s in seeds]))
+    mean_port = float(np.mean([r["tracking"] for r in out.values()]))
+    mean_jax = float(np.mean([r["jax_tracking"] for r in out.values()]))
     launches = vco.vco_scan.launches
     seconds = time.perf_counter() - t0
-    log(f"reference, SLAM over seeds {seeds}: mean tracking port "
-        f"{mean_port:.4f}, JAX {mean_jax:.4f}, |diff| "
+    log(f"reference, SLAM over seeds {list(REFERENCE_SEEDS)}: mean tracking "
+        f"port {mean_port:.4f}, JAX {mean_jax:.4f}, |diff| "
         f"{abs(mean_port - mean_jax):.4f} (tol {TRACKING_MEAN_TOL}); "
         f"{launches} VCO launches; {seconds:.1f} s")
     if not abs(mean_port - mean_jax) <= TRACKING_MEAN_TOL:

@@ -1,12 +1,12 @@
 """Make the JAX package's full-width reference of the port's main path.
 
-    JAX_PLATFORMS=cpu python tests/make_jax_reference.py [--seeds 0,1,2,3,4]
-        [--out tests/reference]
+    JAX_PLATFORMS=cpu python tests/make_jax_reference.py [--out DIR]
 
 Writes ``full_width_jax.npz`` (``np.savez_compressed``) and
-``full_width_jax.json`` (provenance) into ``--out``.  The files are data
-made from the JAX package in this repo, on the CPU, by this script; run it
-again to make them again (about seven minutes on an 8-core host).  The port
+``full_width_jax.json`` (provenance) into ``--out`` (default
+``tests/reference``).  The files are data made from the JAX package in
+this repo, on the CPU, by this script; run it again to make them again
+(about seven minutes on an 8-core host).  The port
 and ``chip_smoke.py`` import no JAX: the smoke's phase 34 reads the npz and
 holds the card's runs against it, and
 ``tests/test_torch_full_width_reference.py`` holds the file, the JAX package
@@ -14,7 +14,7 @@ and the port's CPU build to it.
 
 What it holds:
 
-- **SLAM**, for each seed s: ``bench.py``'s ``build`` at its defaults
+- **SLAM**, for each seed s in 0-4: ``bench.py``'s ``build`` at its defaults
   (ssp_dim 97, 800 LIF per VCO, memory 970, 100 per convolution dimension,
   10 landmarks, 100 clean-up samples per dimension, the 14 s figure-eight,
   the clean-up's default bf16 similarity) stepped 14,000 steps:
@@ -31,25 +31,35 @@ What it holds:
   interpret=True)`` (the Pallas kernel in interpret mode), run as
   ``run(vels[:10000])`` then ``run(vels[10000:])``: ``fast_rows40``,
   ``fast_rows_every1000`` (steps 999, ..., 59999),
-  ``fast_decoded_every10000`` (the six chunk ends) and ``fast_leaf_*``.
+  ``fast_decoded_every10000`` (the six chunk ends) and ``fast_leaf_*``
+  (of the parameters without their lane padding, the port's layout).
 - **slam_map_new**: ``experiments/slam_map_new.py --T 20`` at its default
   widths, the numbers it prints: ``slam_map_new_tracking`` (mean cosine
   over the last half) and ``slam_map_new_item_errors`` (the four items).
 
 Checksums: for every leaf, by its slash path (dict keys sorted, list items
-by index; a parameter NamedTuple by field), [float64 sum, L2 norm, L1
-norm].  The SLAM's are of the build with the clean-up bank and the gate's
-thresholds hoisted into ``params["hoisted"]`` (``SSPSLAM_HOIST_CLEANUP=1
+by index; a parameter NamedTuple by field), ``chip_smoke.leaf_checksum``:
+[float64 sum, L2 norm, L1 norm, sum weighted by position].  The SLAM's
+are of the build with the clean-up bank and the gate's thresholds hoisted
+into ``params["hoisted"]`` (``SSPSLAM_HOIST_CLEANUP=1
 SSPSLAM_HOIST_GATE=1``, the port's layout; its other leaves equal the
 default build's bit for bit, which this script asserts).  ``_leaf_device``
 marks the leaves that hold decoders solved in float32 on the device (the
 builder's batched solve above ``DEVICE_SOLVE_MIN_BATCH_ELEMS``); the rest
 are host solves or drawn from the seed.
+
+BLAS: everything runs with OpenBLAS on BLAS_THREADS threads, whatever the
+host's core count or its ``OPENBLAS_NUM_THREADS``: the builder's NumPy
+solves round by the thread count (on one thread the same JAX build parts
+from this file's SLAM trace at step 17, by up to 9.2e-4 over 300 steps;
+four and eight agree bit for bit).  The JSON records the threads and each
+BLAS library's version and kernel architecture.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import importlib.util
 import json
 import os
@@ -72,9 +82,12 @@ os.environ.setdefault("JAX_PLATFORMS", "cpu")
 
 import jax  # noqa: E402
 import numpy as np  # noqa: E402
+from threadpoolctl import threadpool_info, threadpool_limits  # noqa: E402
 
-# the leaf paths and checksums phase 34 compares, from their one definition
-from chip_smoke import flat_leaves, leaf_checksum as checksum  # noqa: E402
+# the seeds, leaf paths and checksums phase 34 compares, from their one
+# definition
+from chip_smoke import (REFERENCE_SEEDS as SEEDS, flat_leaves,  # noqa: E402
+                        leaf_checksum as checksum)
 
 jax.config.update("jax_platforms", "cpu")
 
@@ -87,6 +100,16 @@ DECODE_SAMPLES = 100
 MAP_NEW_T = 20.0
 HOIST = ("SSPSLAM_HOIST_CLEANUP", "SSPSLAM_HOIST_GATE")
 FAST_DECODERS = ("drec0", "drec1", "drec2", "dout0", "dout1")
+BLAS_THREADS = 4
+
+
+@contextlib.contextmanager
+def pinned_blas():
+    """NumPy's and SciPy's OpenBLAS on BLAS_THREADS threads (SciPy is
+    loaded first: threadpool_limits reaches only loaded libraries)."""
+    import scipy.linalg  # noqa: F401
+    with threadpool_limits(BLAS_THREADS):
+        yield
 
 
 def log(msg):
@@ -189,6 +212,24 @@ def fast_velocities():
     return (0.02 * rng.normal(size=(FAST_STEPS, 2))).astype(np.float32)
 
 
+def unpadded(params, k):
+    """JAX's VCO parameters with the oscillator axis cut back from its
+    lane padding (``pad_vco_params_to_lanes``: zero columns, zero rows of
+    ``ts0T`` / ``ts1T``) to its ``k`` oscillators: the port's layout."""
+    cut = {}
+    for name, x in params._asdict().items():
+        x = np.asarray(x)
+        if x.ndim != 2:
+            continue
+        if name in ("ts0T", "ts1T"):
+            x, pad = x[:k], x[k:]
+        else:
+            x, pad = x[:, :k], x[:, k:]
+        assert not pad.any(), f"{name}'s padding is not zero"
+        cut[name] = x
+    return params._replace(**cut)
+
+
 def fast_path(jb):
     """The fast path's whole run in Pallas interpret mode."""
     from sspslam_tpu.models import FastPathIntegrator
@@ -203,7 +244,7 @@ def fast_path(jb):
     assert out.shape == (FAST_STEPS, fpi.d), out.shape
     ends = out[FAST_CHUNK - 1::FAST_CHUNK]
     decoded = np.asarray(space.decode(ends, num_samples=DECODE_SAMPLES))
-    leaves = list(flat_leaves(fpi.params))
+    leaves = list(flat_leaves(unpadded(fpi.params, (fpi.d + 1) // 2)))
     seconds = time.perf_counter() - t0
     log(f"fast path: {FAST_STEPS} steps, {seconds:.1f} s")
     return {"fast_rows40": out[:40],
@@ -225,8 +266,9 @@ def slam_map_new():
              "--T", str(MAP_NEW_T), "--backend", "cpu",
              "--save-dir", figures],
             capture_output=True, text=True, cwd=ROOT, timeout=3600,
-            env=dict(os.environ, PYTHONPATH=os.pathsep.join(
-                filter(None, [str(ROOT), os.environ.get("PYTHONPATH")]))))
+            env=dict(os.environ, OPENBLAS_NUM_THREADS=str(BLAS_THREADS),
+                     PYTHONPATH=os.pathsep.join(filter(None, [
+                         str(ROOT), os.environ.get("PYTHONPATH")]))))
     if proc.returncode != 0:
         raise RuntimeError(f"slam_map_new exited {proc.returncode}: "
                            f"{proc.stderr[-3000:]}")
@@ -258,18 +300,20 @@ def git_commit():
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--seeds", default="0,1,2,3,4")
     ap.add_argument("--out", default=str(ROOT / "tests" / "reference"))
     args = ap.parse_args(argv)
-    seeds = [int(s) for s in args.seeds.split(",")]
     from sspslam_tpu.ops.vsa import default_cleanup_dtype
     jb = jax_bench()
-    arrays, seconds = {"slam_seeds": np.array(seeds)}, {}
-    for s in seeds:
-        part, seconds[f"slam_s{s}"] = slam_seed(jb, s)
+    arrays, seconds = {}, {}
+    with pinned_blas():
+        blas = [{k: lib.get(k) for k in ("internal_api", "version",
+                                           "architecture", "num_threads")}
+                for lib in threadpool_info() if lib["user_api"] == "blas"]
+        for s in SEEDS:
+            part, seconds[f"slam_s{s}"] = slam_seed(jb, s)
+            arrays.update(part)
+        part, seconds["fast_path"] = fast_path(jb)
         arrays.update(part)
-    part, seconds["fast_path"] = fast_path(jb)
-    arrays.update(part)
     part, seconds["slam_map_new"] = slam_map_new()
     arrays.update(part)
 
@@ -278,17 +322,17 @@ def main(argv=None):
     np.savez_compressed(out / "full_width_jax.npz", **arrays)
     provenance = {
         "made_by": "tests/make_jax_reference.py",
-        "flags": {"seeds": args.seeds},
         "commit": git_commit(),
         "jax": jax.__version__, "numpy": np.__version__,
         "python": sys.version.split()[0],
         "platform": jax.devices()[0].platform,
         "xla_flags": os.environ.get("XLA_FLAGS", ""),
+        "blas_threads": BLAS_THREADS, "blas": blas,
         "cleanup_dtype": np.dtype(default_cleanup_dtype()).name,
-        "slam": {"bench_build": vars(bench_args(None)) | {"seed": seeds},
+        "slam": {"bench_build": vars(bench_args(None)) | {"seed": SEEDS},
                  "steps": WORLD_STEPS, "segment_steps": SLAM_SEGMENT,
                  "tracking_cosine": {str(s): float(arrays[
-                     f"slam_s{s}_tracking"]) for s in seeds}},
+                     f"slam_s{s}_tracking"]) for s in SEEDS}},
         "fast_path": {"n_neurons": 800, "chunk_steps": FAST_CHUNK,
                       "steps": FAST_STEPS, "interpret": True},
         "slam_map_new": {

@@ -3,7 +3,7 @@
 ``tests/make_jax_reference.py``; ``chip_smoke.py``'s phase 34 holds the
 card's runs to it).
 
-- The file: its keys and shapes, every array finite; each seed's stored
+- The file: its keys and shapes, every array finite; every seed's stored
   tracking cosine is the last-quarter mean of its cosine trace; the
   decoded positions are the port's ``SSPSpace.decode`` of the stored rows
   on the CPU (the decode phase 34 runs on the card), within 1e-4.
@@ -14,16 +14,18 @@ card's runs to it).
 - The port's CPU build at full width: ``bench.build`` (seed 0) and
   ``FastPathIntegrator`` reproduce the parameter checksums (1e-6 relative
   for host solves and seeded draws, 1e-4 for float32 device solves:
-  tests/test_torch_builder.py's rule), and the fast path's plain version
-  the first 40 rows within the kernel bound (2e-4).
+  tests/test_torch_builder.py's rule); the SLAM build, stepped 300 steps,
+  the first 300 probe rows within phase 34's bounds (the spike-flip
+  bounds' median, q80 and peak), and the fast path's plain version the
+  first 40 rows within the kernel bound (2e-4).
 - ``slow``: the generator, run again, reproduces the committed file within
   1e-6.
 
-The JAX runs keep the host's default BLAS threads, as the generator ran:
-under one OpenBLAS thread (threadpoolctl) the same JAX build parts from
-its run at step 17 and by up to 9.2e-4 over 300 steps (4 or 8 threads
-agree bit for bit).  The port's two full-width builds run their float32
-solves on four threads (one thread takes 14 s and 10 s).
+The JAX runs pin OpenBLAS to the generator's BLAS_THREADS, as the
+generator ran: under one thread the same JAX build parts from its run at
+step 17 and by up to 9.2e-4 over 300 steps.  The port's two full-width
+builds run their float32 solves on four threads (one thread takes 14 s and
+10 s).
 """
 
 import contextlib
@@ -45,7 +47,7 @@ from sspslam_tpu_torch import bench  # noqa: E402
 from sspslam_tpu_torch.models import FastPathIntegrator  # noqa: E402
 
 REFERENCE = REPO / "tests" / "reference" / "full_width_jax.npz"
-SEEDS = (0, 1, 2, 3, 4)
+SEEDS = chip_smoke.REFERENCE_SEEDS
 D = 97
 DECODE_TOL = 1e-4
 REPRODUCE_TOL = 1e-6
@@ -95,23 +97,22 @@ def test_file_keys_shapes_finite(ref):
     for which in [f"slam_s{s}_" for s in SEEDS] + ["fast_"]:
         n = len(ref[which + "leaf_paths"])
         assert n > 0
-        shapes.update({which + "leaf_sums": (n, 3),
+        shapes.update({which + "leaf_sums": (n, 4),
                        which + "leaf_device": (n,)})
-    assert tuple(ref["slam_seeds"]) == SEEDS
     for key, shape in shapes.items():
         assert ref[key].shape == shape, key
         assert np.all(np.isfinite(ref[key])), key
-    assert set(ref) == set(shapes) | {"slam_seeds"} | {
+    assert set(ref) == set(shapes) | {
         w + "leaf_paths" for w in [f"slam_s{s}_" for s in SEEDS] + ["fast_"]}
     assert REFERENCE.stat().st_size <= 2 * 2 ** 20
 
 
-@pytest.mark.parametrize("seed", SEEDS)
-def test_tracking_is_last_quarter_mean(ref, seed):
-    cos = ref[f"slam_s{seed}_cos"].astype(np.float64)
-    assert float(ref[f"slam_s{seed}_tracking"]) == float(
-        np.mean(cos[-len(cos) // 4:]))
-    assert np.all(np.abs(cos) <= 1 + 1e-6)
+def test_tracking_is_last_quarter_mean(ref):
+    for seed in SEEDS:
+        cos = ref[f"slam_s{seed}_cos"].astype(np.float64)
+        assert float(ref[f"slam_s{seed}_tracking"]) == float(
+            np.mean(cos[-len(cos) // 4:])), seed
+        assert np.all(np.abs(cos) <= 1 + 1e-6), seed
 
 
 @pytest.mark.parametrize("which", [*SEEDS, "fast"])
@@ -127,11 +128,30 @@ def test_decoded_positions_are_the_port_decode(ref, which):
     np.testing.assert_allclose(got, want, atol=DECODE_TOL, rtol=0)
 
 
+def test_leaf_checksums_see_a_permuted_leaf():
+    """The smoke's checksum holds a leaf's layout, not only its values: the
+    same values transposed or in another order fail it."""
+    rng = np.random.default_rng(0)
+    tree = {"enc": torch.tensor(rng.normal(size=(8, 6)), dtype=torch.float32),
+            "bias": [np.arange(5.0), 0.5]}
+    leaves = list(chip_smoke.flat_leaves(tree))
+    paths = [p for p, _ in leaves]
+    sums = np.array([chip_smoke.leaf_checksum(x) for _, x in leaves])
+    host = np.zeros(len(paths), bool)
+    chip_smoke.check_leaf_sums(tree, paths, sums, host, "same")
+    for changed in ({**tree, "enc": tree["enc"].T.contiguous()},
+                    {**tree, "enc": tree["enc"].flip(0)},
+                    {**tree, "bias": [np.arange(5.0)[::-1], 0.5]}):
+        with pytest.raises(AssertionError, match="checksum"):
+            chip_smoke.check_leaf_sums(changed, paths, sums, host, "moved")
+
+
 def test_jax_slam_reproduces_first_rows(ref):
     import make_jax_reference as gen
     jb = gen.jax_bench()
-    sim, probe, _, _ = jb.build(gen.bench_args(0))
-    sim.run_steps(300, segment_steps=300)
+    with gen.pinned_blas():
+        sim, probe, _, _ = jb.build(gen.bench_args(0))
+        sim.run_steps(300, segment_steps=300)
     got = np.asarray(sim.data[probe], np.float64)
     np.testing.assert_allclose(got, ref["slam_s0_rows300"], rtol=0,
                                atol=REPRODUCE_TOL)
@@ -140,9 +160,10 @@ def test_jax_slam_reproduces_first_rows(ref):
 def test_jax_fast_path_reproduces_first_rows(ref):
     import make_jax_reference as gen
     from sspslam_tpu.models import FastPathIntegrator as JaxFastPath
-    fpi = JaxFastPath(gen.jb_space(0), 800, seed=0, chunk_steps=40,
-                      interpret=True)
-    got = np.asarray(fpi.run(gen.fast_velocities()[:40]), np.float64)
+    with gen.pinned_blas():
+        fpi = JaxFastPath(gen.jb_space(0), 800, seed=0, chunk_steps=40,
+                          interpret=True)
+        got = np.asarray(fpi.run(gen.fast_velocities()[:40]), np.float64)
     np.testing.assert_allclose(got, ref["fast_rows40"], rtol=0,
                                atol=REPRODUCE_TOL)
 
@@ -151,7 +172,8 @@ def test_jax_fast_path_reproduces_first_rows(ref):
 def test_port_cpu_build_matches_checksums(ref, which):
     with threads(BUILD_THREADS):
         if which == "slam":
-            sim, *_ = bench.build(bench.parse_args(["--device", "cpu"]))
+            sim, probe, *_ = bench.build(bench.parse_args(["--device",
+                                                           "cpu"]))
             params, key = sim.params, "slam_s0_"
         else:
             fpi = FastPathIntegrator(port_space(), 800, seed=0,
@@ -162,7 +184,12 @@ def test_port_cpu_build_matches_checksums(ref, which):
         ref[key + "leaf_device"], which)
     assert worst["host"] <= chip_smoke.HOST_LEAF_RTOL
     assert worst["device"] <= chip_smoke.DEVICE_LEAF_RTOL
-    if which == "fast":
+    if which == "slam":
+        with threads(BUILD_THREADS):
+            sim.run_steps(chip_smoke.REFERENCE_ROWS)
+        chip_smoke.check_first_rows(sim.data[probe], ref["slam_s0_rows300"],
+                                    "the port's SLAM on the CPU, seed 0")
+    else:
         vels = (0.02 * np.random.default_rng(0).normal(size=(40, 2))).astype(
             np.float32)
         with threads(1):

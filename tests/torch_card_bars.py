@@ -1,6 +1,6 @@
 """The JAX package's slow science bars, run by the port on the card.
 
-    python3 tests/torch_card_bars.py [--timeout SECONDS]
+    python3 tests/torch_card_bars.py
 
 Runs, as children on one CUDA card at once, the port's CLIs with the flags
 of the JAX package's ``slow`` tests plus ``--device cuda``:
@@ -15,12 +15,12 @@ of the JAX package's ``slow`` tests plus ``--device cuda``:
 
 Prints each run's JSON and its bars, then one JSON line with the card's
 name and power limit (``nvidia-smi``), every run's numbers and seconds and
-whether its bars hold; exits 1 if a run fails or a bar does not hold.  It
+whether its bars hold; exits 1 if a run fails, a bar does not hold or
+the runs take more than TIMEOUT seconds together.  It
 imports nothing of JAX: the card's machine has none.  Not part of
 ``chip_smoke.py``, whose time limit cannot take these runs.
 """
 
-import argparse
 import json
 import os
 import subprocess
@@ -29,6 +29,7 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
+TIMEOUT = 1500.0    # seconds the runs may take together
 
 HEADLINE = ("--T", "100", "--ssp-dim", "61", "--pi-n-neurons", "400",
             "--mem-n-neurons", "600", "--circonv-n-neurons", "50",
@@ -92,16 +93,13 @@ def bars_of(key):
 
 def nvidia_smi():
     return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
         timeout=60).stdout.strip().splitlines()[0]
 
 
-def main(argv=None):
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--timeout", type=float, default=1500.0,
-                    help="seconds the runs may take together")
-    args = ap.parse_args(argv)
+def main():
     import torch
     if not torch.cuda.is_available():
         print("torch_card_bars: no CUDA device", file=sys.stderr)
@@ -117,7 +115,7 @@ def main(argv=None):
             env=dict(os.environ, PYTHONPATH=os.pathsep.join(filter(None, [
                 str(ROOT), os.environ.get("PYTHONPATH")])))),
             time.perf_counter())
-    deadline = time.perf_counter() + args.timeout
+    deadline = time.perf_counter() + TIMEOUT
     results, ok = {}, True
     try:
         for key, (proc, t0) in procs.items():
