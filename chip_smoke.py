@@ -271,6 +271,17 @@ result line):
    tracking cosine within 0.04 of JAX's per seed and the five seeds'
    means within 0.02; the decoded position at every 1,000th step against
    JAX's (largest, median, the first step past 0.1; printed).  Both sides keep the bf16 clean-up.  0 VCO launches.
+35. the multi-device path, as one child beside phase 34's (``python3
+   tests/torch_card_sharded.py --smoke``): at world = min(4, cards)
+   ranks, one card and one process each under NCCL, the multi-device dry
+   run (``python -m sspslam_tpu_torch.parallel.dryrun``), then bench.py's
+   seed-0 SLAM world at full width sharded over the ranks for 300 steps,
+   its collectives inside the captured graphs, against the unsharded
+   Simulator on card 0 (the spike-flip bounds' median, q80 and peak), and
+   the VCO kernel's oscillator shards on the ranks
+   (``make_sharded_vco_scan(mesh=...)``: one ``vco_scan`` launch a rank a
+   chunk, 2 chunks, the median |diff| to the unsharded kernel within
+   2e-4).  Prints the world size it ran and the all-reduces a step.
 
 Every CLI subprocess (phases 10, 13, 18, 21-26 and 28-30) runs its module
 as ``python -m`` does, through runpy, and then prints the VCO kernel's
@@ -283,13 +294,14 @@ after phase 17, while the smoke's own process runs the in-process checks
 of phases 28-30, none of which is timed, phase 32 and phase 34's SLAM
 worlds.
 
-The last thirteen lines of standard output are one JSON object of the
+The last fourteen lines of standard output are one JSON object of the
 Simulator's numbers, one of the SLAM numbers, one of phases 14-18
 (``family``), one of phases 19-21 (``scaled``), one of phases 22-24
 (``train``), one of phases 25-27 (``serving``), one of phases 28-30
 (``clis``), one of phases 31-32 (``sharded``, ``demos``), one of phase 33
-(``bench``), one of phase 34 (``reference``), the card's name and power
-limit, one JSON object describing the kernel, and the result line.
+(``bench``), one of phase 34 (``reference``), one of phase 35
+(``mesh``), the card's name and power limit, one JSON object describing
+the kernel, and the result line.
 
 To compare the kernel of two checkouts on one card, time each in turns
 within one command (the other commit unpacked into a git-ignored
@@ -1054,9 +1066,25 @@ def counted_result(child, end):
     line = next(l for l in stdout.splitlines()
                 if l.startswith("vco_scan launches:"))
     launches = int(line.split()[-1])
-    if launches != 0:
+    if launches != 0 and name not in KERNEL_CHILDREN:
         raise AssertionError(f"{name} launched vco_scan: {line}")
     return stdout, end - t0, launches
+
+
+#: children that launch the VCO kernel themselves (phase 35 compares the
+#: ranks' sharded scan with the unsharded kernel in its own process)
+KERNEL_CHILDREN = {"mesh"}
+
+
+def start_script(script, *args):
+    """Start the repository's ``script`` with ``args`` in a child (its
+    last line must be the VCO kernel's launches in that process), as
+    ``start_counted`` starts a CLI."""
+    out, err = tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+")
+    root = Path(__file__).resolve().parent
+    proc = subprocess.Popen([sys.executable, str(root / script), *args],
+                            cwd=root, stdout=out, stderr=err, text=True)
+    return script, proc, out, err, time.perf_counter()
 
 
 def start_together(jobs, envs=None):
@@ -1159,6 +1187,8 @@ def children_and_checks(vco, work, ref):
     jobs, envs = untimed_jobs()
     t0 = time.perf_counter()
     pending = start_together({**jobs, **new_cli_jobs(work)}, envs)
+    pending["mesh"] = ("mesh",) + start_script(
+        "tests/torch_card_sharded.py", "--smoke")[1:]
     try:
         checks = (recovery_schedule(vco), maps_in_process(vco),
                   flagship_mflop(vco), demos_phase(vco, ref),
@@ -1170,6 +1200,32 @@ def children_and_checks(vco, work, ref):
     log(f"{len(children)} CLI children together, beside phases 28-30's, "
         f"32's and 34's checks: {time.perf_counter() - t0:.1f} s")
     return children, checks
+
+
+def mesh_phase(child):
+    """Phase 35's numbers from its child (``tests/torch_card_sharded.py
+    --smoke``): the world it ran, one ``vco_scan`` launch a rank a chunk,
+    the collectives a step; the child itself held the sharded rows to the
+    unsharded Simulator's and the shards' scan to the unsharded kernel."""
+    stdout, seconds, _ = child
+    mesh = json.loads(next(l for l in stdout.splitlines()
+                           if l.startswith('{"mesh"')))["mesh"]
+    run = mesh["runs"][0]
+    world = min(4, torch.cuda.device_count())
+    per = run["vco_launches_per_rank_per_chunk"]
+    if not (run["world"] == world == mesh["dryrun"]["world"]
+            and len(per) == world and all(n == 1 for p in per for n in p)):
+        raise AssertionError(f"phase 35: world {run['world']} (want "
+                             f"{world}), vco_scan launches {per}")
+    mesh["seconds"] = seconds
+    log(f"mesh (phase 35): world {world} under NCCL; dry run "
+        f"{mesh['dryrun']['all_reduces_per_step']} all-reduces a step, "
+        f"FLOP ratio {mesh['dryrun']['flops_ratio_to_ideal']:.3f}; full "
+        f"width {run['all_reduces_per_step']} all-reduces a step "
+        f"({run['all_reduce_bytes_per_step']} bytes), first rows median "
+        f"{run['first_rows']['median']:.2e} vs unsharded; vco_scan "
+        f"launches a rank a chunk {per}; {seconds:.1f} s")
+    return mesh
 
 
 def replay_vs_eager(sim, probe, what):
@@ -3932,6 +3988,7 @@ def main() -> int:
     work = tempfile.mkdtemp(prefix="chip_smoke_")
     children, (schedule, maps, flagship, demos, reference["slam"]) = \
         children_and_checks(vco, work, ref)
+    mesh = mesh_phase(children["mesh"])
     simulator["run_pathint"] = cli_errors("run_pathint",
                                           *children["run_pathint"])
     slam["run_slam"] = cli_errors("run_slam", *children["run_slam"])
@@ -3978,6 +4035,7 @@ def main() -> int:
     print(json.dumps({"sharded": sharded, "demos": demos}), flush=True)
     print(json.dumps({"bench": bench}), flush=True)
     print(json.dumps({"reference": reference}), flush=True)
+    print(json.dumps({"mesh": mesh}), flush=True)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"kernels": [{
         "name": "vco_scan", "route": "cuda",
@@ -3999,12 +4057,18 @@ def main() -> int:
                         "pi-fast traffic)",
                         "make_sharded_vco_scan (phase 31): one launch per "
                         "shard per chunk",
+                        "make_sharded_vco_scan(mesh=...) (phase 35): one "
+                        "launch per rank per chunk, on each rank's card",
                         "python -m sspslam_tpu_torch.bench --model pi-fast "
                         "(phase 33)"],
         "launches_on_bench_pi_fast": bench["pi_fast"]["vco_scan_launches"],
         "launches_on_sharded_path": {
             S: r["launches_per_chunk"] for S, r in sharded.items()},
         "sharded_ms_by_shards": {S: r["ms"] for S, r in sharded.items()},
+        "launches_on_mesh_path": {
+            "world": mesh["runs"][0]["world"],
+            "per_rank_per_chunk":
+                mesh["runs"][0]["vco_launches_per_rank_per_chunk"]},
         "launches_on_simulator_paths": {
             "pi (phase 8)": simulator["vco_scan_launches"],
             "run_pathint (phase 10)":

@@ -211,7 +211,7 @@ def slam_simulator(space, world, gate_mode="reference", anchor=False,
                    clean_up_method="grid", matmul_dtype=None, *,
                    pi_n_neurons=800, mem_n_neurons=970, circonv_n_neurons=100,
                    cleanup_samples=100, view_rad=0.8, n_anchors=3, seed=0,
-                   device="cuda"):
+                   device="cuda", mesh=None):
     """bench.py --model slam's network: SLAMNetwork (by default at the
     flagship width: 800 LIF per VCO, memory 970, 100 neurons per
     circular-convolution dimension, clean-up over 100 x 100 samples) fed
@@ -219,8 +219,9 @@ def slam_simulator(space, world, gate_mode="reference", anchor=False,
     ms lowpass.  With ``anchor`` the auto-recovery gate reads the first
     ``n_anchors`` landmarks as surveyed beacons; ``clean_up_method`` picks
     the clean-up (the MLP ones read ``space.decoder_params``);
-    ``matmul_dtype`` the parameter storage.  Returns (simulator, probe,
-    build seconds)."""
+    ``matmul_dtype`` the parameter storage; ``mesh`` a model axis to
+    shard the Simulator over.  Returns (simulator, probe, build
+    seconds)."""
     from ..models import SLAMNetwork, get_anchor_input_functions
     from ..nef import Connection, Network, Node, Probe, Simulator
     path, vels, landmarks, vec = world
@@ -252,5 +253,6 @@ def slam_simulator(space, world, gate_mode="reference", anchor=False,
                 Connection(Node(f), dst, synapse=None)
         probe = Probe(slam.pathintegrator.output, synapse=0.05)
     t0 = time.perf_counter()
-    sim = Simulator(net, seed=seed, device=device, matmul_dtype=matmul_dtype)
+    sim = Simulator(net, seed=seed, device=device, matmul_dtype=matmul_dtype,
+                    mesh=mesh)
     return sim, probe, time.perf_counter() - t0

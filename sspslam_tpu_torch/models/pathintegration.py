@@ -180,6 +180,8 @@ class PathIntegrationReencode(PathIntegration):
             return torch.where(active, cleaned - x, 0.0)
 
         cleanup_fun.hoisted_consts = hoisted
+        # a sharded step holds these as row shards (vsa.nearest_row)
+        cleanup_fun.row_sharded = ("bank", "bank_sim")
 
         def _cleanup_np(t, x, consts=None):
             # the host interpreter's mirror (the JAX package's, on the

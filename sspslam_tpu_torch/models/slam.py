@@ -149,6 +149,8 @@ def make_cleanup_fun(ssp_space, method="grid", samples_per_dim=100,
 
     cleanup_fun.hoisted_consts = hoisted
     if method == "grid":
+        # a sharded step holds these as row shards (vsa.nearest_row)
+        cleanup_fun.row_sharded = ("bank", "bank_sim")
         def _cleanup_np(x, consts=None):
             # the host interpreter's mirror: one float32 matvec and argmax
             b = np.asarray((hoisted if consts is None else consts)["bank"],
@@ -361,6 +363,8 @@ def _wrap_cleanup_node(clean_up_fun):
     def cleanup_node_fn(t, x, consts=None, _f=clean_up_fun):
         return _f(x, consts)
     cleanup_node_fn.hoisted_consts = clean_up_fun.hoisted_consts
+    if hasattr(clean_up_fun, "row_sharded"):
+        cleanup_node_fn.row_sharded = clean_up_fun.row_sharded
     npf = getattr(clean_up_fun, "np_function", None)
     if npf is not None:
         cleanup_node_fn.np_function = (

@@ -19,12 +19,13 @@ the step function is made.
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
 
 from ..ops import learning as learning_ops
+from ..ops import vsa
 from ..ops.quantize import QTensor, quantize
 from .builder import BuiltConnection, BuiltProbe, Model
 
@@ -142,6 +143,206 @@ def _recurrent(bc: BuiltConnection) -> bool:
             and getattr(bc.post, "index", None) is not None
             and getattr(bc.pre, "index", "x") == bc.post.index
             and bc.pre_kind != "node")
+
+
+# ---------------------------------------------------------------------------
+# Model-axis sharding: which axis of each leaf a rank holds
+# ---------------------------------------------------------------------------
+
+def group_axis(n: int, be) -> Optional[int]:
+    """The axis of ensemble group ``be``'s (k, n) or (n,) state that a
+    model axis of ``n`` ranks splits (the JAX package's ``_group_axis``):
+    a batched group its element axis when it divides, else its neuron
+    axis; a single ensemble its neurons; None when nothing divides."""
+    if be.batched:
+        if be.k >= max(n, 2) and be.k % n == 0:
+            return 0
+        if be.n >= max(n, 2) and be.n % n == 0:
+            return 1
+        return None
+    if be.n >= max(n, 2) and be.n % n == 0:
+        return 0
+    return None
+
+
+def _spec_for(n: int, shape, shard_axis) -> Optional[int]:
+    """``shard_axis`` if it divides ``n`` ways, else None (whole)."""
+    if (shard_axis is None or shard_axis >= len(shape)
+            or shape[shard_axis] % n != 0 or shape[shard_axis] < n):
+        return None
+    return shard_axis
+
+
+def _maybe_q(n: int, param, shard_axis):
+    """The split axis of a parameter leaf; for a :class:`QTensor` a
+    QTensor of its payload's and its scale's axes (the scale drops the
+    contracted axis, so it is whole when that axis is the split one)."""
+    if isinstance(param, QTensor):
+        q_ax = _spec_for(n, tuple(param.q.shape), shard_axis)
+        caxis = param.caxis % param.q.ndim
+        if (shard_axis is None or shard_axis == caxis
+                or param.q.shape[shard_axis] % n != 0):
+            s_ax = None
+        else:
+            s_ax = shard_axis - (1 if shard_axis > caxis else 0)
+        return QTensor(q_ax, _spec_for(n, tuple(param.s.shape), s_ax),
+                       param.caxis)
+    return _spec_for(n, tuple(np.shape(param)), shard_axis)
+
+
+def _row_local(bc: BuiltConnection, gaxis) -> bool:
+    """A decode that stays on the rank's rows: a batched group's own
+    recurrence (the VCO feedback) when the group is split over its
+    elements."""
+    return (bc.pre_kind == "ea_batch" and bc.post_kind == "ea_batch"
+            and bc.pre.index == bc.post.index
+            and gaxis.get(bc.pre.index) == 0 and bc.ea_rows is None
+            and bc.jnp_function is None and bc.weights is None
+            and bc.learned_slot is None)
+
+
+def _row_sharded_tables(model: Model) -> Dict[str, tuple]:
+    """{hoisted key: table names} a node function reads as row shards
+    (its ``row_sharded`` attribute: the clean-up's sample bank, whose
+    argmax the sharded step reduces across ranks)."""
+    out = {}
+    for info in model.node_info.values():
+        hk = info.get("hoisted_key")
+        names = getattr(info["node"].output, "row_sharded", ())
+        if hk is not None and names:
+            out[hk] = tuple(names)
+    return out
+
+
+def _rule_group(bc: BuiltConnection):
+    """The ensemble group whose neurons index a learned leaf's rows."""
+    if bc.voja_rule is not None:
+        return bc.post
+    if bc.pes_rule is not None:
+        return bc.pre
+    return None
+
+
+def _check_shardable(model: Model, gaxis) -> None:
+    for bc in model.connections:
+        be = _rule_group(bc)
+        if be is not None and be.batched and gaxis.get(be.index) is not None:
+            raise NotImplementedError(
+                f"connection {bc.index}: learning on a batched group split "
+                f"over a model axis")
+    for bp in model.probes:
+        t = bp.target
+        if (bp.kind == "ens_decoded" and t.batched and bp.elem_index is None
+                and gaxis.get(t.index) is not None):
+            raise NotImplementedError(f"probe {bp.index}: decoded probe of "
+                                      f"a whole split batched group")
+
+
+def _axes_like(tree):
+    if isinstance(tree, dict):
+        return {k: _axes_like(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_axes_like(v) for v in tree]
+    if isinstance(tree, QTensor):
+        return QTensor(None, None, tree.caxis)
+    return None
+
+
+def step_layout(model: Model, params, n: int):
+    """(state axes, params axes): the axis of every state and parameter
+    leaf that a rank of an ``n``-way model axis holds a slice of, as the
+    sharded step reads them; None is whole.  Ensemble groups are split
+    by :func:`group_axis` with their encoders, gains, biases, decoders and
+    decode stacks, and the learned weights and activity filters of their
+    neurons; a group's own recurrent decode filter follows its rows; the
+    clean-up's sample bank is split over rows.  Everything else is whole
+    (``params`` None: the state axes only)."""
+    gaxis = {be.index: group_axis(n, be) for be in model.ensembles}
+    _check_shardable(model, gaxis)
+    neurons = []
+    for be in model.ensembles:
+        shape = (be.k, be.n) if be.batched else (be.n,)
+        neurons.append({key: gaxis[be.index]
+                        for key in be.neuron_type.init_state(shape)})
+    filters = [None] * len(model.filter_specs)
+    learned = {k: None for k in model.learned_init}
+    for bc in model.connections:
+        if bc.filt_index is not None and _row_local(bc, gaxis):
+            filters[bc.filt_index] = 0
+        be = _rule_group(bc)
+        if be is not None and gaxis.get(be.index) is not None:
+            learned[bc.learned_slot] = 0
+            if bc.pes_act_filt_index is not None:
+                filters[bc.pes_act_filt_index] = 0
+    state = {"step": None, "neurons": neurons, "filters": filters,
+             "learned": learned,
+             "nodes": {k: None for k in model.node_state_init}}
+    if params is None:
+        return state, None
+
+    p = _axes_like(params)
+    for i, be in enumerate(model.ensembles):
+        ga = gaxis[be.index]
+        ep = params["ens"][i]
+        p["ens"][i]["scaled_encoders"] = _maybe_q(n, ep["scaled_encoders"],
+                                                  ga)
+        for k2 in ("bias", "gain"):
+            p["ens"][i][k2] = _spec_for(n, tuple(ep[k2].shape), ga)
+    eab = _ea_batch_decode_groups(model)
+    eab_members = {bc.index for bcs in eab.values() for bc in bcs}
+    for bc in model.connections:
+        entry = params["conn"].get(str(bc.index), {})
+        if "D" not in entry or getattr(bc.pre, "index", None) is None:
+            continue
+        ga, D = gaxis[bc.pre.index], entry["D"]
+        if bc.pre_kind in ("ens", "ens_view") and not bc.pre.batched \
+                and ga == 0:
+            p["conn"][str(bc.index)]["D"] = _maybe_q(n, D, 0)
+        elif bc.pre_kind == "ea_batch" and D.ndim == 3:
+            if ga == 1 or (ga == 0 and (bc.ea_rows is None
+                                        or bc.index in eab_members)):
+                # a member of a layered group is not read by the step: it
+                # splits as the JAX package splits it
+                p["conn"][str(bc.index)]["D"] = _maybe_q(n, D, ga)
+    for key, bcs in _elem_decode_groups(model).items():
+        ga = gaxis[bcs[0].pre.index]
+        p["dstack"][key] = _maybe_q(n, params["dstack"][key],
+                                    1 if ga == 1 else None)
+    for key, bcs in eab.items():
+        p["dstack"][key] = _maybe_q(n, params["dstack"][key],
+                                    gaxis[bcs[0].pre.index])
+    for bp in model.probes:
+        entry = params["probe"].get(str(bp.index), {})
+        t = bp.target
+        if ("D" in entry and getattr(t, "index", None) is not None
+                and not t.batched and gaxis[t.index] == 0):
+            p["probe"][str(bp.index)]["D"] = _maybe_q(n, entry["D"], 0)
+    for hk, names in _row_sharded_tables(model).items():
+        for name in names:
+            v = params["hoisted"].get(hk, {}).get(name)
+            if v is not None and v.ndim == 2:
+                p["hoisted"][hk][name] = _spec_for(n, tuple(v.shape), 0)
+    return state, p
+
+
+class StepShard:
+    """A rank's place on the model axis of a sharded step: its index
+    ``rank`` of ``world``, the axis's process group, and ``log``, one
+    (op, bytes) per collective the step issued when it last ran."""
+
+    def __init__(self, rank: int, world: int, group=None):
+        self.rank, self.world, self.group = int(rank), int(world), group
+        self.log = []
+
+    def all_reduce(self, t: torch.Tensor, op: str = "sum") -> torch.Tensor:
+        """``t`` reduced in place over the axis (a fresh tensor of the
+        step's own)."""
+        import torch.distributed as dist
+        red = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX,
+               "min": dist.ReduceOp.MIN}[op]
+        dist.all_reduce(t, op=red, group=self.group)
+        self.log.append((op, t.numel() * t.element_size()))
+        return t
 
 
 def build_params(model: Model, matmul_dtype=None, *, device):
@@ -288,8 +489,64 @@ def _key_tree(tree):
     return None
 
 
+class _Cell:
+    """A value each rank of a model axis holds one summand of: its
+    neurons' share of a decode, or its slice of a gathered tensor in
+    place with zeros elsewhere.  ``full`` is the sum over the ranks, once
+    an all-reduce has made it."""
+
+    __slots__ = ("part", "full")
+
+    def __init__(self, part):
+        self.part, self.full = part, None
+
+
+class _Lazy:
+    """A connection's or probe's value still to be reduced: ``view`` of
+    its cell's full value."""
+
+    __slots__ = ("cell", "view")
+
+    def __init__(self, cell, view=None):
+        self.cell, self.view = cell, view
+
+    def value(self):
+        return self.cell.full if self.view is None else self.view(
+            self.cell.full)
+
+
+def _resolve(shard: "StepShard", objs) -> list:
+    """``objs`` with every :class:`_Lazy` replaced by its value: the
+    cells not yet reduced go out in ONE flat all-reduce (a bucket)."""
+    cells, seen = [], set()
+    for o in objs:
+        if isinstance(o, _Lazy) and o.cell.full is None \
+                and id(o.cell) not in seen:
+            seen.add(id(o.cell))
+            cells.append(o.cell)
+    if cells:
+        flat = torch.cat([c.part.reshape(-1) for c in cells])
+        shard.all_reduce(flat)
+        off = 0
+        for c in cells:
+            c.full = flat[off:off + c.part.numel()].reshape(c.part.shape)
+            off += c.part.numel()
+    return [o.value() if isinstance(o, _Lazy) else o for o in objs]
+
+
+def _narrow(x, axis: int, start: int, length: int):
+    """``x.narrow``, for a :class:`QTensor` its payload and (unless the
+    axis is the contracted one) its scale."""
+    if isinstance(x, QTensor):
+        c = x.caxis % x.q.ndim
+        s = x.s if axis == c else x.s.narrow(axis - (axis > c), start,
+                                             length)
+        return QTensor(x.q.narrow(axis, start, length), s, x.caxis)
+    return x.narrow(axis, start, length)
+
+
 def make_step_fn(model: Model, dtype=torch.float32, matmul_dtype=None, *,
-                 device):
+                 device, shard: Optional[StepShard] = None):
     """Returns ``step(state, xs, params) -> (new_state, emits)``.
 
     ``state`` is the tree of ``Model.initial_state()`` as tensors on
@@ -302,8 +559,34 @@ def make_step_fn(model: Model, dtype=torch.float32, matmul_dtype=None, *,
     contracts the bf16-rounded activation against the 1-byte payload in
     float32 (exact: every int8 and e4m3 value is a bf16 value) and
     multiplies the output by the per-slice scale.
+
+    ``shard``: the step of one rank of a model axis.  ``state`` and
+    ``params`` are then the rank's slices (:func:`step_layout`): a split
+    group computes its currents, neuron update, Voja and PES updates on
+    its own rows; its decodes are partial sums, all-reduced over the axis
+    where a unit of the same step reads them, and in one bucket for the
+    filter updates, learning and probes; neuron-level reads of a split
+    group are gathered the same way.  Every other value is whole on every
+    rank, and so are the emits.
     """
     device = torch.device(device)
+    if shard is not None:
+        gax = {be.index: group_axis(shard.world, be)
+               for be in model.ensembles}
+        _check_shardable(model, gax)
+        span = {}     # this rank's [lo, hi) along each split group's axis
+        for be in model.ensembles:
+            ga = gax[be.index]
+            if ga is not None:
+                size = (be.k if be.batched and ga == 0 else be.n) \
+                    // shard.world
+                span[be.index] = (shard.rank * size,
+                                  (shard.rank + 1) * size)
+        row_local = {bc.index for bc in model.connections
+                     if _row_local(bc, gax)}
+        row_tables = _row_sharded_tables(model)
+    else:
+        gax, span, row_local, row_tables = {}, {}, set(), {}
     dt = model.dt
     filt_coeffs = [(a, b) for (_shape, a, b) in model.filter_specs]
     cascade = model.filter_cascade  # Alpha synapses: out slot -> hidden slot
@@ -420,6 +703,116 @@ def make_step_fn(model: Model, dtype=torch.float32, matmul_dtype=None, *,
         sig_act: Dict[int, torch.Tensor] = {}
         new_neurons = list(state["neurons"])
         dec_cache: Dict[str, torch.Tensor] = {}
+        # sharded step: resolved pre values, probe values, gathered cells
+        pre_memo: Dict[int, torch.Tensor] = {}
+        probe_memo: Dict[int, torch.Tensor] = {}
+        if shard is not None:
+            shard.log = []
+
+        def gathered(key, x, be):
+            """The cell of ``x`` (this rank's slice of group ``be``'s
+            (k, n) or (n,) tensor) laid into zeros of the whole shape."""
+            if key not in dec_cache:
+                ga, (lo, hi) = gax[be.index], span[be.index]
+                part = zeros((be.k, be.n) if be.batched else (be.n,))
+                part.narrow(ga, lo, hi - lo).copy_(x)
+                dec_cache[key] = _Cell(part)
+            return dec_cache[key]
+
+        def batch_part(act, D, be):
+            """This rank's summand of a (k, n) x (k, n, d) group decode."""
+            y = ein("kn,knd->kd", act, D)
+            if gax[be.index] == 1:
+                return y
+            lo, hi = span[be.index]
+            part = zeros((be.k, y.shape[-1]))
+            part[lo:hi] = y
+            return part
+
+        def elem_part(act, e, D, be):
+            """This rank's summand of element ``e``'s (n,) x (n, d)
+            decode: its neurons' share, or all of it on the rank holding
+            the element."""
+            lo, hi = span[be.index]
+            if gax[be.index] == 1:
+                return matmul(act[e], _narrow(D, 0, lo, hi - lo))
+            if lo <= e < hi:
+                return matmul(act[e - lo], D)
+            return zeros((D.shape[-1],))
+
+        def elem_group_part(key, be):
+            act = sig_act[be.index]
+            bcs = _elem_groups[key]
+            if gax[be.index] == 1:
+                acts = torch.stack([act[b.ea_elem_index] for b in bcs])
+            else:
+                lo, hi = span[be.index]
+                zero = zeros((be.n,))
+                acts = torch.stack([act[b.ea_elem_index - lo]
+                                    if lo <= b.ea_elem_index < hi else zero
+                                    for b in bcs])
+            return ein("gn,gnd->gd", acts, params["dstack"][key])
+
+        def split_pre_value(bc: BuiltConnection):
+            """pre_value of a connection from a split group: a
+            :class:`_Lazy` (or, for a group's own recurrence over its
+            rows, this rank's rows)."""
+            be = bc.pre
+            act = sig_act[be.index]
+            if bc.pre_kind in ("ens", "ens_view"):
+                return _Lazy(_Cell(matmul(act, decoders_of(bc))))
+            if bc.pre_kind == "ea_elem":
+                if bc.index in _elem_pos:
+                    key, i = _elem_pos[bc.index]
+                    if key not in dec_cache:
+                        dec_cache[key] = _Cell(elem_group_part(key, be))
+                    return _Lazy(dec_cache[key], lambda f, i=i: f[i])
+                return _Lazy(_Cell(elem_part(act, bc.ea_elem_index,
+                                             decoders_of(bc), be)))
+            if bc.pre_kind == "ea_batch":
+                if bc.index in _eab_pos:
+                    key = _eab_pos[bc.index]
+                    if key not in dec_cache:
+                        dec_cache[key] = _Cell(batch_part(
+                            act, params["dstack"][key], be))
+                    off, kk = bc.ea_rows
+                    return _Lazy(dec_cache[key],
+                                 lambda f, o=off, k=kk: f[o:o + k])
+                D = decoders_of(bc)
+                if bc.index in row_local:
+                    return ein("kn,knd->kd", act, D)
+                if bc.ea_rows is None:
+                    return _Lazy(_Cell(batch_part(act, D, be)))
+                off, kk = bc.ea_rows
+                if gax[be.index] == 1:
+                    return _Lazy(_Cell(ein("kn,knd->kd",
+                                           act[off:off + kk], D)))
+                # split over elements: this rank's rows of the member
+                lo, hi = span[be.index]
+                a, b = max(off, lo), min(off + kk, hi)
+                part = zeros((kk, D.shape[-1]))
+                if a < b:
+                    part[a - off:b - off] = ein(
+                        "kn,knd->kd", act[a - lo:b - lo],
+                        _narrow(D, 0, a - off, b - a))
+                return _Lazy(_Cell(part))
+            if bc.pre_kind in ("neurons", "ea_neurons"):
+                return _Lazy(gathered(("act", be.index), act, be),
+                             lambda f: neuron_value(bc, f))
+            raise TypeError(bc.pre_kind)
+
+        def prefetch(bcs, extra=None):
+            """Make the pre values of connections ``bcs`` (and the
+            lazies in ``extra``, a dict) with ONE all-reduce for all that
+            need one; kept in pre_memo (and ``extra`` updated)."""
+            todo = [bc for bc in bcs if bc.index not in pre_memo]
+            vals = [pre_value(bc) for bc in todo]
+            keys = list(extra) if extra else []
+            out = _resolve(shard, vals + [extra[k] for k in keys])
+            for bc, v in zip(todo, out):
+                pre_memo[bc.index] = v
+            for k, v in zip(keys, out[len(todo):]):
+                extra[k] = v
 
         def elem_decode(bc):
             """Row of the batched (g, n) x (g, n, d) group decode."""
@@ -444,6 +837,8 @@ def make_step_fn(model: Model, dtype=torch.float32, matmul_dtype=None, *,
                     rng = _contig(bc.pre_indices)
                     v = v[rng[0]:rng[1]] if rng else v[pre_idx[bc.index]]
                 return v
+            if gax.get(bc.pre.index) is not None:
+                return split_pre_value(bc)
             act = sig_act[bc.pre.index]
             if bc.pre_kind in ("ens", "ens_view"):
                 return matmul(act, decoders_of(bc))
@@ -465,6 +860,13 @@ def make_step_fn(model: Model, dtype=torch.float32, matmul_dtype=None, *,
                     off, kk = bc.ea_rows
                     act = act[off:off + kk]
                 return ein("kn,knd->kd", act, decoders_of(bc))
+            if bc.pre_kind in ("neurons", "ea_neurons"):
+                return neuron_value(bc, act)
+            raise TypeError(bc.pre_kind)
+
+        def neuron_value(bc: BuiltConnection, act):
+            """A neuron-level connection's value from the group's whole
+            activities."""
             if bc.pre_kind == "neurons":
                 nl = bc.pre.n - bc.pre.n_pad
                 if bc.ea_elem_index is not None:  # fused-group element
@@ -474,15 +876,16 @@ def make_step_fn(model: Model, dtype=torch.float32, matmul_dtype=None, *,
                 if bc.full_weights or bc.pre.n_pad == 0:
                     return act.reshape(-1)
                 return act[..., :nl].reshape(-1)
-            if bc.pre_kind == "ea_neurons":
-                if bc.ea_rows is not None:
-                    off, kk = bc.ea_rows
-                    return act[off:off + kk]
-                return act              # (k, n) raw activities
-            raise TypeError(bc.pre_kind)
+            if bc.ea_rows is not None:     # ea_neurons
+                off, kk = bc.ea_rows
+                return act[off:off + kk]
+            return act              # (k, n) raw activities
 
         def current_value(bc: BuiltConnection):
-            v = pre_value(bc)
+            v = pre_memo[bc.index] if bc.index in pre_memo \
+                else pre_value(bc)
+            if isinstance(v, _Lazy):
+                v = _resolve(shard, [v])[0]
             if bc.jnp_function is not None:
                 v = torch.as_tensor(bc.jnp_function(v), dtype=dtype,
                                     device=device).reshape(-1)
@@ -511,7 +914,42 @@ def make_step_fn(model: Model, dtype=torch.float32, matmul_dtype=None, *,
             # batched like the values added into it in place
             return step_no.new_zeros(shape, dtype=dtype)
 
+        def add_current(J, bc, v, be):
+            """J of a split group plus a neuron-current connection's
+            whole value ``v``: the rank's neurons (or element) of it."""
+            ga, (lo, hi) = gax[be.index], span[be.index]
+            nl = be.n - be.n_pad
+            if not (bc.full_weights or be.n_pad == 0):
+                # phantom neurons get an exact zero
+                v = v.reshape(-1, nl)
+                v = torch.cat([v, zeros((v.shape[0], be.n - nl))], 1)
+            e = bc.post_elem_index
+            if e is not None:
+                v = v.reshape(be.n)
+                if ga == 1:
+                    J[e] += v[lo:hi]
+                elif lo <= e < hi:
+                    J[e - lo] += v
+                return J
+            full = (be.k, be.n) if be.batched else (be.n,)
+            return J + v.reshape(full).narrow(ga, lo, hi - lo)
+
+        def row_shard(hk, params):
+            """(first global row, shard handle) of the row-split tables of
+            hoisted entry ``hk``, or None when this step holds them
+            whole."""
+            if shard is None or hk not in row_tables:
+                return None
+            name = row_tables[hk][0]
+            m = params["hoisted"][hk][name].shape[0]
+            if m == np.shape(model.hoisted[hk][name])[0]:
+                return None
+            return shard.rank * m, shard
+
         def gather_node_input(node):
+            if shard is not None:
+                prefetch([bc for bc in node_in.get(id(node), [])
+                          if bc.synapse is None])
             x = zeros((node.size_in,))
             for bc in node_in.get(id(node), []):
                 v = conn_output(bc)
@@ -529,6 +967,8 @@ def make_step_fn(model: Model, dtype=torch.float32, matmul_dtype=None, *,
                      for bc in _tiled_inputs[be.index]], dim=0)
             x = zeros(shape)
             for bc in ens_in.get(be.index, []):
+                if bc.index in row_local:     # added to the rank's rows
+                    continue
                 v = conn_output(bc)
                 if bc.post_kind == "ea_batch":
                     if bc.ea_rows is not None:   # fused-EA member rows
@@ -561,6 +1001,9 @@ def make_step_fn(model: Model, dtype=torch.float32, matmul_dtype=None, *,
                     x = gather_node_input(obj)
                     hk = info.get("hoisted_key")
                     slot = info.get("state_slot")
+                    rows = row_shard(hk, params)
+                    if rows is not None:
+                        vsa.set_row_shard(rows)
                     if slot is not None:
                         # stateful node: f(t, x, s, consts=None)->(out, s')
                         kw = ({"consts": params["hoisted"][hk]}
@@ -575,6 +1018,8 @@ def make_step_fn(model: Model, dtype=torch.float32, matmul_dtype=None, *,
                         out = obj.output(t, x)
                     else:
                         out = obj.output(t)
+                    if rows is not None:
+                        vsa.set_row_shard(None)
                     sig_node[id(obj)] = torch.as_tensor(
                         out, dtype=dtype, device=device).reshape(-1)
                 else:  # passthrough
@@ -585,7 +1030,18 @@ def make_step_fn(model: Model, dtype=torch.float32, matmul_dtype=None, *,
                 E = (learned[f"voja_{be.voja_conn_index}"]
                      if be.voja_conn_index is not None
                      else p["scaled_encoders"])
+                ga = gax.get(be.index)
+                if shard is not None:
+                    prefetch([bc for bc in ens_in.get(be.index, [])
+                              + ens_cur.get(be.index, [])
+                              if bc.synapse is None])
                 x = gather_ens_input(be)
+                if ga == 0 and be.batched:    # the rank's rows
+                    lo, hi = span[be.index]
+                    x = x[lo:hi]
+                    for bc in ens_in.get(be.index, []):
+                        if bc.index in row_local:
+                            x = x + conn_output(bc).reshape(x.shape)
                 if be.batched:
                     J = ein("knd,kd->kn", E, x) + p["bias"]
                 else:
@@ -593,7 +1049,9 @@ def make_step_fn(model: Model, dtype=torch.float32, matmul_dtype=None, *,
                 for bc in ens_cur.get(be.index, []):
                     v = conn_output(bc)
                     nl = be.n - be.n_pad
-                    if bc.full_weights or be.n_pad == 0:
+                    if ga is not None:
+                        J = add_current(J, bc, v, be)
+                    elif bc.full_weights or be.n_pad == 0:
                         if bc.post_elem_index is not None:  # fused element
                             J[bc.post_elem_index] += v
                         else:
@@ -606,6 +1064,39 @@ def make_step_fn(model: Model, dtype=torch.float32, matmul_dtype=None, *,
                 new_neurons[be.index] = ns
                 sig_act[be.index] = out
 
+        def split_probe(bp):
+            """The lazy value of a probe of a split group's decode or
+            neurons, or None."""
+            tg = bp.target
+            if bp.kind not in ("ens_decoded", "activities", "voltage") \
+                    or gax.get(getattr(tg, "index", None)) is None:
+                return None
+            if bp.kind == "ens_decoded":
+                act = sig_act[tg.index]
+                D = probe_const[str(bp.index)]["D"]
+                if bp.elem_index is None:
+                    return _Lazy(_Cell(matmul(act, D)))
+                return _Lazy(_Cell(elem_part(act, bp.elem_index, D, tg)))
+            src = (sig_act[tg.index] if bp.kind == "activities"
+                   else new_neurons[tg.index]["voltage"])
+
+            def view(v):
+                if bp.elem_index is not None:
+                    v = v[bp.elem_index]
+                return v[..., :tg.n - tg.n_pad] if tg.n_pad else v
+            return _Lazy(gathered((bp.kind, tg.index), src, tg), view)
+
+        def whole_learned(bc, tree):
+            """A learned leaf whole (gathered when this rank holds rows)."""
+            x = tree[bc.learned_slot]
+            be = _rule_group(bc)
+            if be is None or gax.get(be.index) is None:
+                return x
+            lo, hi = span[be.index]
+            part = zeros((be.n,) + tuple(x.shape[1:]))
+            part[lo:hi] = x
+            return _resolve(shard, [_Lazy(_Cell(part))])[0]
+
         # ---- filter updates ----------------------------------------------
         new_filters = list(filters)
 
@@ -617,6 +1108,22 @@ def make_step_fn(model: Model, dtype=torch.float32, matmul_dtype=None, *,
                 u = ah * filters[h] + bh * u
                 new_filters[h] = u
             new_filters[fi] = a * filters[fi] + b * u
+
+        if shard is not None:
+            # one bucket: the decodes no later unit of this step reads (the
+            # filter inputs, the Voja keys, unfiltered PES errors) and the
+            # probes of split groups
+            for bp in model.probes:
+                lazy = split_probe(bp)
+                if lazy is not None:
+                    probe_memo[bp.index] = lazy
+            prefetch([bc for bc in model.connections
+                      if bc.filt_index is not None or bc.voja_rule is not None
+                      ] + [model.connections[rci] for bc in model.connections
+                           if bc.pes_rule is not None
+                           for rci in bc.rule_target_conns
+                           if model.connections[rci].synapse is None],
+                     extra=probe_memo)
 
         for bc in model.connections:
             if bc.filt_index is not None:
@@ -660,7 +1167,9 @@ def make_step_fn(model: Model, dtype=torch.float32, matmul_dtype=None, *,
         # ---- probes -------------------------------------------------------
         emits = {}
         for bp in model.probes:
-            if bp.kind == "node":
+            if bp.index in probe_memo:
+                v = probe_memo[bp.index]
+            elif bp.kind == "node":
                 v = sig_node[id(bp.target)]
             elif bp.kind == "ens_decoded":
                 act = sig_act[bp.target.index]
@@ -680,14 +1189,14 @@ def make_step_fn(model: Model, dtype=torch.float32, matmul_dtype=None, *,
                 if bp.target.n_pad:
                     v = v[..., :bp.target.n - bp.target.n_pad]
             elif bp.kind == "weights":
-                D = (new_learned[bp.target.learned_slot]
+                D = (whole_learned(bp.target, new_learned)
                      if bp.target.learned_slot
                      else conn_const[str(bp.target.index)]["D"])
                 if isinstance(D, QTensor):   # quantised static decoders
                     D = D.dequant()
                 v = D.t() if D.ndim == 2 else D
             elif bp.kind == "scaled_encoders":
-                v = new_learned[bp.target.learned_slot]
+                v = whole_learned(bp.target, new_learned)
             else:
                 raise TypeError(bp.kind)
             if bp.filt_index is not None:

@@ -26,7 +26,8 @@ state, so a bundle saved after a training run ships the learned map;
 :meth:`Simulator.save_checkpoint` file (of either package).
 
 Not carried (ROADMAP.md, "do not carry"): lowering for several
-``platforms`` and mesh-sharded bundles.
+``platforms``.  Not yet ported: mesh-sharded bundles (a program with
+collectives inside it; ``save_bundle`` refuses a sharded Simulator).
 """
 
 from __future__ import annotations
@@ -47,6 +48,7 @@ __all__ = ["save_bundle", "ServingModel"]
 
 _PROGRAM = "step.pt2"
 _NOT_CARRIED = "not carried into the port (ROADMAP.md, 'do not carry')"
+_NOT_YET = "not ported yet (ROADMAP.md, Queue 1: sharded serving bundles)"
 
 #: dtypes NumPy has no type for: stored as raw bits of the same width
 _RAW_BITS = {torch.bfloat16: np.uint16, torch.float8_e4m3fn: np.uint8,
@@ -185,6 +187,10 @@ def save_bundle(sim: Simulator, path: str, segment_steps: int = 1000,
             f"save_bundle(platforms=...): multi-platform lowering is "
             f"{_NOT_CARRIED}; the program is moved to the serving device "
             f"at load")
+    if getattr(sim, "shard", None) is not None:
+        raise NotImplementedError(
+            f"save_bundle: a Simulator sharded over a mesh (its step holds "
+            f"collectives): sharded serving is {_NOT_YET}")
     model = sim.model
     splits = sim._input_splits()
     width = splits[-1][1] if splits else 0
@@ -268,7 +274,7 @@ class ServingModel:
         if self.meta.get("mesh"):
             raise NotImplementedError(
                 f"{path} is a mesh-sharded bundle: sharded serving is "
-                f"{_NOT_CARRIED}")
+                f"{_NOT_YET}")
         self.device = device
         exported = move_to_device_pass(
             torch.export.load(program), device)

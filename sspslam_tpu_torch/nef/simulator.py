@@ -35,7 +35,8 @@ import torch
 
 from ..ops.quantize import QTensor
 from .builder import Model, build
-from .executor import build_params, make_step_fn, sparse_probe_value
+from .executor import (StepShard, build_params, make_step_fn,
+                       sparse_probe_value, step_layout)
 from .graph import Network, Probe
 from .processes import TimeTable
 
@@ -68,11 +69,14 @@ def _host(x) -> np.ndarray:
     return x.detach().cpu().numpy() if torch.is_tensor(x) else np.asarray(x)
 
 
-def _capture(device, leaves, pos, advance, steps: int):
+def _capture(device, leaves, pos, advance, steps: int,
+             same_stream: bool = False):
     """The CUDA graph of ``steps`` consecutive ``advance()`` calls,
     captured after one warm-up call on a side stream into buffer row 0
     (``pos`` zeroed); ``leaves`` (the state and the device indices) are
-    restored after the warm-up."""
+    restored after the warm-up.  ``same_stream``: capture on the warm-up's
+    stream (a sharded step: its NCCL communicators are warmed up on the
+    stream that captures their collectives)."""
     saved = [x.clone() for x in leaves]
     pos.zero_()
     side = torch.cuda.Stream(device)
@@ -83,7 +87,7 @@ def _capture(device, leaves, pos, advance, steps: int):
     for x, s in zip(leaves, saved):
         x.copy_(s)
     g = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(g):
+    with torch.cuda.graph(g, stream=side if same_stream else None):
         for _ in range(steps):
             advance()
     return g
@@ -104,7 +108,19 @@ def _replay(graphs, seg: int, graph_steps: int) -> None:
 
 class Simulator:
     """Simulates a :class:`Network` on ``device`` (the card unless the
-    caller names the CPU; ``device="cuda"`` without a card raises)."""
+    caller names the CPU; ``device="cuda"`` without a card raises).
+
+    ``mesh`` (:func:`..parallel.sharding.make_mesh`): one rank of a model
+    axis ``axis``; every rank of the mesh makes its Simulator with the same
+    arguments and calls the same methods in the same order.  The build
+    pads batched groups to the axis size, rank 0's parameters and initial
+    state are broadcast (every rank then holds bitwise the same whole
+    tree), and each rank keeps its slices (:func:`executor.step_layout`)
+    on the mesh's device.  The step is the sharded one (its collectives
+    inside the captured graphs on the card); dense probes come out whole
+    on every rank; checkpoints and sparse probes gather the state, and
+    rank 0 writes the checkpoint file, the same file as an unsharded
+    Simulator's.  ``mesh_stats()`` reports the collectives of a step."""
 
     #: steps per captured CUDA graph: of 1, 10 and 100, 10 was the fastest
     #: at ssp_dim 97 / 800 LIF per VCO on an H100 (PERF.md)
@@ -117,7 +133,9 @@ class Simulator:
                  seed: Optional[int] = None, default_neuron_type=None,
                  progress: bool = False, dtype=torch.float32,
                  fuse_ensembles: bool = True, matmul_dtype=None, *,
-                 device="cuda"):
+                 device="cuda", mesh=None, axis: str = "model"):
+        if mesh is not None:
+            device = mesh.device
         device = torch.device(device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("Simulator: device='cuda' but no CUDA device "
@@ -126,15 +144,38 @@ class Simulator:
         self.dt = float(dt)
         self.progress = progress
         self.dtype = dtype
+        self.matmul_dtype = matmul_dtype
+        self.mesh, self.axis, self.shard = mesh, axis, None
+        # a mesh with the model axis runs the sharded step, even over one
+        # rank (its collectives then run over a group of one)
+        sharded = mesh is not None and axis in mesh.shape
+        n_model = mesh.shape[axis] if sharded else 1
         self.model: Model = build(network, dt=dt, seed=seed,
                                   default_neuron_type=default_neuron_type,
                                   fuse_ensembles=fuse_ensembles,
-                                  device=device)
+                                  pad_batched_to=n_model, device=device)
+        params = build_params(self.model, matmul_dtype=matmul_dtype,
+                              device=device)
+        state0 = _to_device(self.model.initial_state(), device)
+        self._layout = None
+        if mesh is not None:
+            from ..parallel import sharding
+            params, state0 = sharding.broadcast_tree([params, state0])
+            if sharded:
+                self.shard = StepShard(mesh.coord(axis), n_model,
+                                       mesh.group(axis))
+                self._layout = step_layout(self.model, params, n_model)
+                params = sharding.shard_tree(params, self._layout[1],
+                                             self.shard.rank, n_model)
+                state0 = sharding.shard_tree(state0, self._layout[0],
+                                             self.shard.rank, n_model)
         self._step_fn = make_step_fn(self.model, dtype=dtype,
-                                     matmul_dtype=matmul_dtype, device=device)
-        self._params = build_params(self.model, matmul_dtype=matmul_dtype,
-                                    device=device)
-        self.state = _to_device(self.model.initial_state(), device)
+                                     matmul_dtype=matmul_dtype, device=device,
+                                     shard=self.shard)
+        self._params = params
+        # the rank's slices of the initial state, for reset()
+        self._state0 = [x.clone() for x in _flatten(state0)]
+        self.state = state0
         # the next input row and the next probe-buffer row, on the device
         self._row = torch.zeros(1, dtype=torch.long, device=device)
         self._pos = torch.zeros(1, dtype=torch.long, device=device)
@@ -283,7 +324,8 @@ class Simulator:
         if g is None:
             g = self._graphs[steps] = _capture(
                 self.device, _flatten(self.state) + [self._row, self._pos],
-                self._pos, self._advance, steps)
+                self._pos, self._advance, steps,
+                same_stream=self.shard is not None)
         return g
 
     def _segment_graphs(self, seg: int) -> None:
@@ -407,7 +449,8 @@ class Simulator:
                 if bp.sparse:
                     if (cum + seg) % bp.period_steps == 0:
                         self._probe_data[bp.index].append(
-                            sparse_probe_value(model, self.state, bp)[None])
+                            sparse_probe_value(model, self.whole_state(),
+                                               bp)[None])
                         self._sparse_steps[bp.index].append(cum + seg)
                 else:
                     e = self._pbuf[bp.index][:seg]
@@ -453,9 +496,8 @@ class Simulator:
         ``keep_inputs``: keep a table preloaded from step 0 (and the
         graphs that read it), for runs of the same inputs under other
         params (``experiments/tune_loop_closure.py``)."""
-        for dst, src in zip(_flatten(self.state),
-                            _flatten(self.model.initial_state())):
-            dst.copy_(torch.as_tensor(np.array(src)))
+        for dst, src in zip(_flatten(self.state), self._state0):
+            dst.copy_(src)
         self.n_steps = 0
         self._data_start = 0
         if not (keep_inputs and self._preload_start == 0):
@@ -473,8 +515,25 @@ class Simulator:
     # checkpoint is its leaves.  The file is the JAX package's: np.savez
     # with n_steps, n_leaves and leaf_i in jax.tree_util.tree_flatten order,
     # so checkpoints move between the two packages in both directions.
+    def whole_state(self):
+        """The state tree, whole (gathered from the ranks under a model
+        axis; the state itself otherwise)."""
+        if self.shard is None:
+            return self.state
+        from ..parallel.sharding import gather_tree
+        return gather_tree(self.state, self._layout[0], self.mesh, self.axis)
+
+    def mesh_stats(self) -> dict:
+        """The collectives the sharded step issued in its last step:
+        {"all_reduces": count, "bytes": total payload} (zeros unsharded
+        or before a step)."""
+        log = self.shard.log if self.shard is not None else []
+        return {"all_reduces": len(log), "bytes": int(sum(b for _, b in log))}
+
     def save_checkpoint(self, path: str):
-        leaves = _flatten(self.state)
+        leaves = _flatten(self.whole_state())
+        if self.mesh is not None and self.mesh.rank != 0:
+            return
         np.savez(path, n_steps=self.n_steps, n_leaves=len(leaves),
                  **{f"leaf_{i}": _host(leaf) for i, leaf in enumerate(leaves)})
 
@@ -482,6 +541,8 @@ class Simulator:
         if not os.path.exists(path) and os.path.exists(path + ".npz"):
             path += ".npz"   # np.savez appends the suffix save-side
         leaves = _flatten(self.state)
+        axes = (_flatten(self._layout[0]) if self.shard is not None
+                else [None] * len(leaves))
         with np.load(path) as f:
             n = int(f["n_leaves"])
             if n != len(leaves):
@@ -489,7 +550,11 @@ class Simulator:
                                  f"model {len(leaves)}")
             arrays = [f[f"leaf_{i}"] for i in range(n)]
             self.n_steps = int(f["n_steps"])
-        for dst, arr in zip(leaves, arrays):
+        for dst, arr, ax in zip(leaves, arrays, axes):
+            if ax is not None:      # this rank's slice of the whole leaf
+                size = arr.shape[ax] // self.shard.world
+                arr = np.take(arr, range(self.shard.rank * size,
+                                         (self.shard.rank + 1) * size), ax)
             if tuple(arr.shape) != tuple(dst.shape):
                 raise ValueError(f"checkpoint leaf of shape {arr.shape} does "
                                  f"not fit the state's {tuple(dst.shape)}")

@@ -210,14 +210,48 @@ def default_cleanup_dtype():
             else torch.bfloat16)
 
 
+#: (first global row, shard handle) while a sharded step runs a node
+#: function that holds rows of its sample bank (set by the executor)
+_ROW_SHARD = None
+
+
+def set_row_shard(rows) -> None:
+    """Mark the banks :func:`nearest_row` is given as rows of a bank split
+    over a model axis: ``(first global row, shard handle)``, or None."""
+    global _ROW_SHARD
+    _ROW_SHARD = rows
+
+
 def nearest_row(bank: torch.Tensor, bank_sim: torch.Tensor,
                 v: torch.Tensor) -> torch.Tensor:
     """The row of ``bank`` (m, d) whose row of ``bank_sim`` (the same bank,
     in the dtype of the similarity product) is most similar to ``v``
     (..., d): the argmax (the first maximal index, as ``jnp.argmax``) and
-    a gather, with no host read, so a captured step can run it."""
-    best = torch.argmax(similarity(bank_sim, v.to(bank_sim.dtype)), dim=-1)
-    return bank.index_select(0, best.reshape(-1)).reshape(v.shape)
+    a gather, with no host read, so a captured step can run it.
+
+    Under a sharded step (:func:`set_row_shard`) the banks are this rank's
+    rows of the whole bank, and the pick keeps ``jnp.argmax``'s
+    first-occurrence rule across ranks: the local maximum and its first
+    index, a MAX all-reduce of the value, a MIN all-reduce of the global
+    index over the ranks that hold the maximum, then the picked row summed
+    from the rank that holds it (zeros elsewhere)."""
+    sims = similarity(bank_sim, v.to(bank_sim.dtype))
+    best = torch.argmax(sims, dim=-1)
+    if _ROW_SHARD is None:
+        return bank.index_select(0, best.reshape(-1)).reshape(v.shape)
+    first, shard = _ROW_SHARD
+    m = bank.shape[0]
+    val = sims.gather(-1, best.unsqueeze(-1)).squeeze(-1).float()
+    top = shard.all_reduce(val.clone(), "max")
+    big = torch.full_like(best, m * shard.world)
+    pick = shard.all_reduce(torch.where(val == top, best + first, big),
+                            "min")
+    local = pick - first
+    mine = (local >= 0) & (local < m)
+    row = bank.index_select(0, local.clamp(0, m - 1).reshape(-1)).reshape(
+        v.shape).float()
+    row = row * mine.unsqueeze(-1).to(row.dtype)
+    return shard.all_reduce(row, "sum").to(bank.dtype)
 
 
 def cleanup_from_set(sample_ssps: torch.Tensor, v: torch.Tensor,

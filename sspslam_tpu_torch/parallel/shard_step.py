@@ -3,13 +3,15 @@
 Port of :mod:`sspslam_tpu.parallel.shard_step`.  The JAX module lays the
 (d+1)//2 oscillators over a device mesh with ``shard_map``: each device
 scans its own oscillators and one ``psum`` per step adds the partial (1, d)
-SSPs.  The mesh is not carried (one card).  Here each shard is a
-contiguous slice of the oscillators, and its chunk is one call of
-:func:`ops.vco_scan.vco_scan`: on a CUDA tensor the Hopper kernel
-(``csrc/vco_scan.cu``) on a CUDA stream of the shard's own, on a CPU tensor
-the plain version.  The kernel returns the FILTERED decode rows projected
-to the SSP, and filtering commutes with that projection, so the sum of the
-shards' (T, d) traces is the JAX ``psum`` result; only the order of a sum
+SSPs.  Here each shard is a contiguous slice of the oscillators, and its
+chunk is one call of :func:`ops.vco_scan.vco_scan`: on a CUDA tensor the
+Hopper kernel (``csrc/vco_scan.cu``), on a CPU tensor the plain version.
+Without a mesh every shard runs on one card, each on a CUDA stream of its
+own; with a mesh (:mod:`.sharding`) rank s of the model axis runs shard s
+on its own device, one launch a chunk.  The kernel returns the FILTERED
+decode rows projected to the SSP, and filtering commutes with that
+projection, so the sum of the shards' (T, d) traces is the JAX ``psum``
+result: one all-reduce a chunk, none a step.  Only the order of a sum
 differs from the unsharded scan.
 """
 
@@ -57,8 +59,8 @@ def _shard(params: VCOParams, lo: int, hi: int) -> VCOParams:
         for name in ARRAY_FIELDS})
 
 
-def make_sharded_vco_scan(params: VCOParams, n_shards: int, n_steps: int,
-                          *, device="cuda"):
+def make_sharded_vco_scan(params: VCOParams, n_shards, n_steps: int,
+                          *, device="cuda", mesh=None, axis: str = "model"):
     """Build ``fn(state, vel_chunk, corr_chunk) -> (state, ssp_chunk)``
     over ``n_steps`` steps with the oscillator axis split into
     ``n_shards`` contiguous shards (k padded to a multiple first).
@@ -69,7 +71,18 @@ def make_sharded_vco_scan(params: VCOParams, n_shards: int, n_steps: int,
     filtered (n_steps, d) SSP trace on ``device``, the shards' traces
     summed in shard order.  ``fn.padded_params`` is the padded bank and
     ``fn.shards`` the shards' banks.  On a CUDA device each shard's kernel
-    runs on its own stream and the sum waits for all of them."""
+    runs on its own stream and the sum waits for all of them.
+
+    ``mesh``: the shards are the ranks of its ``axis`` (``n_shards`` None
+    or that size) and ``device`` is the mesh's.  Each rank holds and runs
+    its own shard only: ``state`` is the one-element list of its
+    :class:`VCOState`, and ssp_chunk is the all-reduced sum, the same on
+    every rank."""
+    if mesh is not None:
+        if n_shards not in (None, mesh.shape[axis]):
+            raise ValueError(f"make_sharded_vco_scan: {n_shards} shards "
+                             f"over a mesh axis of {mesh.shape[axis]}")
+        return _mesh_scan(params, n_steps, mesh, axis)
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("make_sharded_vco_scan: device='cuda' but no "
@@ -111,6 +124,42 @@ def make_sharded_vco_scan(params: VCOParams, n_shards: int, n_steps: int,
     run.initial_state = initial_state
     run.padded_params = padded
     run.shards = shards
+    return run
+
+
+def _mesh_scan(params: VCOParams, n_steps: int, mesh, axis: str):
+    """make_sharded_vco_scan over the ranks of ``mesh``'s ``axis``."""
+    import torch.distributed as dist
+    device = mesh.device
+    n_shards, rank = mesh.shape[axis], mesh.coord(axis)
+    group = mesh.group(axis)
+    padded = pad_vco_params(params, n_shards)
+    n, k = padded.bias.shape
+    k_shard = k // n_shards
+    mine = _shard(_on(padded, device), rank * k_shard, (rank + 1) * k_shard)
+
+    def run(state: List[VCOState], vel_chunk, corr_chunk
+            ) -> Tuple[List[VCOState], torch.Tensor]:
+        vel = torch.as_tensor(vel_chunk, dtype=F32, device=device)
+        corr = torch.as_tensor(corr_chunk, dtype=F32, device=device)
+        vel, corr = vel.contiguous(), corr.contiguous()
+        if vel.shape[0] != n_steps or corr.shape[0] != n_steps:
+            raise ValueError(f"sharded vco_scan: chunks of {n_steps} steps "
+                             f"(got {vel.shape[0]} and {corr.shape[0]})")
+        if len(state) != 1:
+            raise ValueError("sharded vco_scan: a rank holds one shard "
+                             f"state (got {len(state)})")
+        new, y = vco_scan(mine, state[0], vel, corr)
+        y = y.contiguous()
+        dist.all_reduce(y, group=group)     # the chunk's one collective
+        return [new], y
+
+    def initial_state() -> List[VCOState]:
+        return [initial_vco_state(n, k_shard, device=device)]
+
+    run.initial_state = initial_state
+    run.padded_params = padded
+    run.shards = [mine]
     return run
 
 

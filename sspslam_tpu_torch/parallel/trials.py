@@ -9,8 +9,14 @@ steps are captured as one CUDA graph and replayed, as the Simulator does
 for one episode: the input row and the probe-buffer row are device tensors
 advanced inside the graph, and the time-major input table (T, B, size) is
 uploaded once.  A failed vmap or capture raises; nothing falls back to a
-loop over episodes.  The device mesh of the JAX package is not carried
-(one card).
+loop over episodes.
+
+With a mesh (:mod:`.sharding`), the episodes are split over its data
+axis: each rank runs its contiguous share of them, and the probe traces
+are gathered, in episode order, on every rank.  If the mesh also has a
+model axis (dp x tp), each episode runs the model-sharded step of its
+model group, one episode after another (its collectives have no batching
+rule, so they are not vmapped).
 """
 
 from __future__ import annotations
@@ -141,26 +147,111 @@ class BatchedEpisodes:
 
 
 def run_batched_episodes(sim: Simulator, input_tables: List, n_steps: int,
-                         graph_steps: int = Simulator.GRAPH_STEPS):
+                         graph_steps: int = Simulator.GRAPH_STEPS, *,
+                         mesh=None, axis: str = "data",
+                         model_axis: str = "model"):
     """Run B episodes of ``sim``'s model in parallel.
 
     sim : a built Simulator (its current state is every episode's start).
     input_tables : one (B, n_steps, size) array per tabulated input node, in
         ``sim.model.input_nodes`` order; uploaded once, time-major.
+    mesh : a :class:`.sharding.Mesh` with an ``axis`` axis: B (a multiple
+        of its size) is split over it.  If it also has a ``model_axis``,
+        each episode's state and the parameters are
+        split over that axis too (a Simulator built with ``mesh`` holds
+        them so already; an unsharded one is sliced here).
 
     Returns ({probe object: (B, n_steps, ...) array} for dense probes, the
-    final state tree with a leading (B,) axis on the device), and leaves
-    ``sim`` untouched."""
-    tables = [torch.as_tensor(t).transpose(0, 1) for t in input_tables]
-    runner = BatchedEpisodes(sim, tables, graph_steps=graph_steps)
-    bufs = runner.run(n_steps)
+    final state tree with a leading episode axis on the device), and
+    leaves ``sim`` untouched.  Under a mesh the traces are every
+    episode's, on every rank; the final state is this rank's episodes'
+    (and under a model axis, this rank's slices)."""
+    if mesh is None:
+        return _run_local(sim, input_tables, n_steps, graph_steps)
+    import torch.distributed as dist
+    B = int(np.shape(input_tables[0])[0]) if input_tables else 1
+    nd = mesh.shape[axis]
+    if B % nd:
+        raise ValueError(f"run_batched_episodes: {B} episodes over a data "
+                         f"axis of {nd}")
+    lo = mesh.coord(axis) * (B // nd)
+    mine = [np.asarray(t)[lo:lo + B // nd] for t in input_tables]
+    if model_axis in mesh.shape:
+        out, state = _run_model_sharded(sim, mine, n_steps, mesh,
+                                        model_axis)
+    else:
+        out, state = _run_local(sim, mine, n_steps, graph_steps)
+    group = mesh.group(axis)
+    whole = {}
+    for obj, v in out.items():
+        t = torch.as_tensor(np.ascontiguousarray(v)).to(sim.device)
+        parts = [torch.empty_like(t) for _ in range(nd)]
+        dist.all_gather(parts, t, group=group)
+        whole[obj] = _host(torch.cat(parts))
+    return whole, state
+
+
+def _dense_out(model, traces):
+    """{probe object: (B, steps, ...)} from {probe index: (B, steps, ...)}
+    with each probe's period applied."""
     out = {}
-    for bp in runner._dense:
-        v = np.swapaxes(_host(bufs[bp.index]), 0, 1)   # -> (B, n_steps, ...)
+    for bp in model.probes:
+        if bp.sparse:
+            continue
+        v = traces[bp.index]
         if bp.period_steps > 1:
             v = v[:, bp.period_steps - 1::bp.period_steps]
         out[bp.obj] = v
-    return out, runner.state
+    return out
+
+
+def _run_local(sim, input_tables, n_steps, graph_steps):
+    tables = [torch.as_tensor(t).transpose(0, 1) for t in input_tables]
+    runner = BatchedEpisodes(sim, tables, graph_steps=graph_steps)
+    bufs = runner.run(n_steps)
+    traces = {bp.index: np.swapaxes(_host(bufs[bp.index]), 0, 1)
+              for bp in runner._dense}
+    return _dense_out(sim.model, traces), runner.state
+
+
+def _run_model_sharded(sim, input_tables, n_steps, mesh, model_axis):
+    """This rank's episodes, one after another, through the step sharded
+    over ``model_axis`` (the Simulator's own if it was built on the mesh,
+    else one made here with the Simulator's state and parameters
+    sliced)."""
+    from ..nef.executor import StepShard, make_step_fn, step_layout
+    from .sharding import shard_tree
+    if sim.shard is not None:
+        step, params, state0 = sim._step_fn, sim.params, sim.state
+    else:
+        n = mesh.shape[model_axis]
+        shard = StepShard(mesh.coord(model_axis), n, mesh.group(model_axis))
+        s_axes, p_axes = step_layout(sim.model, sim.params, n)
+        step = make_step_fn(sim.model, dtype=sim.dtype,
+                            matmul_dtype=sim.matmul_dtype, device=sim.device,
+                            shard=shard)
+        params = shard_tree(sim.params, p_axes, shard.rank, n)
+        state0 = shard_tree(sim.state, s_axes, shard.rank, n)
+    dense = [bp for bp in sim.model.probes if not bp.sparse]
+    cols = [torch.as_tensor(np.asarray(t, np.float32)).to(sim.device)
+            for t in input_tables]
+    B = cols[0].shape[0] if cols else 1
+    traces = {bp.index: [] for bp in dense}
+    finals = []
+    for b in range(B):
+        state = pytree.tree_map(lambda x: x.clone(), state0)
+        rows = {bp.index: [] for bp in dense}
+        for i in range(n_steps):
+            state, emits = step(state, [c[b, min(i, c.shape[1] - 1)]
+                                        for c in cols], params)
+            for bp in dense:
+                rows[bp.index].append(emits[bp.index])
+        for bp in dense:
+            traces[bp.index].append(torch.stack(rows[bp.index]))
+        finals.append(state)
+    traces = {k: _host(torch.stack(v)) for k, v in traces.items()}
+    final = pytree.tree_map(lambda *xs: torch.stack(xs), *finals)
+    return _dense_out(sim.model, traces), final
 
 
 def run_seed_sweep(sims, n_steps: int, segment_steps: int = 1000):

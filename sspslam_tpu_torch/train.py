@@ -22,8 +22,10 @@ loop over the step:
 
 The episode steps the functional state eagerly under autograd; it does not
 use the Simulator's state tensors, graphs or probe buffers, so training
-leaves ``sim`` as it was.  One card: the JAX package's data-parallel
-``mesh`` of :func:`fit` is not carried.
+leaves ``sim`` as it was.  With a ``mesh``, :func:`fit` is
+data-parallel: each rank of the mesh's data axis runs its share of the
+episodes, the parameters stay whole and bitwise equal on every rank, and
+the gradients are summed by one all-reduce before the optimizer step.
 """
 
 from __future__ import annotations
@@ -272,6 +274,19 @@ def merge_params(trainable, frozen):
 # Training loop
 # ---------------------------------------------------------------------------
 
+def _gather_batch(x, group):
+    """The whole batch of ``x`` (this rank's episodes along axis 0) from
+    every rank of ``group``: the other ranks' parts as constants, this
+    rank's own tensor in its place (so autograd reaches it)."""
+    import torch.distributed as dist
+    if not torch.is_tensor(x):
+        return x
+    parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, x.detach().contiguous(), group=group)
+    parts[dist.get_rank(group)] = x
+    return torch.cat(parts)
+
+
 def _device_of(tree):
     for _, leaf in _leaves_with_paths(tree):
         if torch.is_tensor(leaf):
@@ -285,7 +300,8 @@ def fit(episode, params, xs, state0,
         optimizer: Optional[Callable[[list], torch.optim.Optimizer]] = None,
         steps: int = 100,
         callback: Optional[Callable[[int, float], None]] = None,
-        keep_best: bool = False) -> Tuple[dict, list]:
+        keep_best: bool = False, mesh=None,
+        batch_axis: str = "data") -> Tuple[dict, list]:
     """Minimise ``loss_fn(emits, final_state)`` over the path-selected
     parameter subset (Adam, learning rate 1e-3, by default: optax's
     ``adam`` rule, β 0.9 / 0.999, ε 1e-8, bias-corrected).
@@ -297,7 +313,17 @@ def fit(episode, params, xs, state0,
     losses)``; each loss is the one at the parameters before that step's
     update.  ``keep_best`` returns the lowest-loss iterate, the final one
     (evaluated once more after the loop) included; if every loss was
-    non-finite, the last iterate.  One card: there is no ``mesh``.
+    non-finite, the last iterate.
+
+    ``mesh`` (:func:`parallel.sharding.make_mesh`) with a ``batch_axis``
+    axis: data-parallel training of a :func:`make_batched_episode_fn`
+    episode.  Every rank passes the same whole ``params``, ``xs`` (B, T,
+    width) and ``state0``; rank c of the axis's n runs episodes
+    [c B / n, (c + 1) B / n).  The emits and the final state are gathered
+    (the other ranks' parts as constants), so every rank computes the
+    loss of the whole batch and the gradient through its own episodes;
+    one all-reduce sums the gradients, and a checksum all-reduce holds
+    the parameters bitwise equal across ranks after every step.
 
     Learning-rate scale: Adam's per-coordinate step is about the learning
     rate itself, and NEF decoder weights are small (O(1e-3) for a
@@ -325,10 +351,28 @@ def fit(episode, params, xs, state0,
            else torch.optim.Adam(leaves, lr=1e-3))
     xs = torch.as_tensor(xs, dtype=torch.float32).to(device)
     state0 = _state_on(state0, device)
+    group = None
+    if mesh is not None:
+        from .parallel.sharding import assert_same_on_ranks
+        if batch_axis not in mesh.shape:
+            raise ValueError(f"mesh has no '{batch_axis}' axis: {mesh}")
+        group, nd = mesh.group(batch_axis), mesh.shape[batch_axis]
+        if xs.shape[0] % nd:
+            raise ValueError(f"fit: {xs.shape[0]} episodes over a data "
+                             f"axis of {nd}")
+        share = xs.shape[0] // nd
+        lo = mesh.coord(batch_axis) * share
+        xs = xs[lo:lo + share]
+        state0 = _tree_map(lambda x: x[lo:lo + share], state0)
+        assert_same_on_ranks(leaves, group, "fit: the trainable leaves")
 
     def loss_of():
         final_state, emits = episode(merge_params(train_p, frozen_p), xs,
                                      state0)
+        if group is not None:
+            emits = {k: _gather_batch(v, group) for k, v in emits.items()}
+            final_state = _tree_map(lambda x: _gather_batch(x, group),
+                                    final_state)
         return loss_fn(emits, final_state)
 
     losses = []
@@ -338,7 +382,17 @@ def fit(episode, params, xs, state0,
         opt.zero_grad(set_to_none=True)
         loss = loss_of()
         loss.backward()
+        if group is not None:
+            import torch.distributed as dist
+            for t in leaves:
+                # a leaf no episode of this rank reaches has a zero
+                # gradient here (every rank joins every all-reduce)
+                if t.grad is None:
+                    t.grad = torch.zeros_like(t)
+                dist.all_reduce(t.grad, group=group)
         opt.step()
+        if group is not None:
+            assert_same_on_ranks(leaves, group, f"fit step {i}: parameters")
         losses.append(float(loss.detach()))   # loss at prev (pre-update)
         if keep_best and losses[-1] < best_loss:
             best_loss, best_vals = losses[-1], prev

@@ -282,3 +282,16 @@ def assert_runs_match(jnet, pnet, n_steps, seed=0, spiking=False, **kw):
         else:
             np.testing.assert_array_equal(a.numpy(), b)
     return res
+
+
+def spawn_ranks(fn, world, tmp_path, timeout=240, args=()):
+    """``fn(rank, world, device, *args)`` on ``world`` gloo ranks on the
+    CPU (``parallel.sharding.spawn``): a ``file://`` rendezvous in a fresh
+    directory under ``tmp_path`` (xdist workers never share one), one
+    torch and BLAS thread per rank, and every rank killed and
+    TimeoutError raised past ``timeout`` seconds.  ``fn`` lives in a
+    module the ranks import without JAX (tests/torch_mesh_ranks.py).
+    Returns the ranks' results in rank order."""
+    from sspslam_tpu_torch.parallel.sharding import spawn
+    return spawn(fn, world, "cpu", args=tuple(args), timeout=timeout,
+                 rendezvous_dir=str(tmp_path), threads=1)
