@@ -281,7 +281,17 @@ result line):
    the VCO kernel's oscillator shards on the ranks
    (``make_sharded_vco_scan(mesh=...)``: one ``vco_scan`` launch a rank a
    chunk, 2 chunks, the median |diff| to the unsharded kernel within
-   2e-4).  Prints the world size it ran and the all-reduces a step.
+   2e-4).  The dry run ends with its bundle step (``save_bundle`` of the
+   sharded tiny SLAM, one 4-step segment of zero rows served by
+   ``ServingModel`` on every rank: finite, the same on every rank); the
+   full-width run saves a sharded serving bundle from the fresh state
+   before its 300 live steps (one program a model coordinate, its
+   all-reduces as many as the live step's) and serves the same 300 rows
+   from it on every rank in segments of 100, within 1e-6 of the live rows
+   (phase 25's bound).  Prints the world size it ran, the all-reduces a
+   step, the export's seconds and megabytes, and served and live steps/s
+   (the median of the segments after the first).  0 VCO launches on the
+   served path.
 
 Every CLI subprocess (phases 10, 13, 18, 21-26 and 28-30) runs its module
 as ``python -m`` does, through runpy, and then prints the VCO kernel's
@@ -1205,8 +1215,12 @@ def children_and_checks(vco, work, ref):
 def mesh_phase(child):
     """Phase 35's numbers from its child (``tests/torch_card_sharded.py
     --smoke``): the world it ran, one ``vco_scan`` launch a rank a chunk,
-    the collectives a step; the child itself held the sharded rows to the
-    unsharded Simulator's and the shards' scan to the unsharded kernel."""
+    the collectives a step, the dry run's bundle step and the full-width
+    bundle: one program a model coordinate, as many all-reduces in each as
+    the live step, served rows within 1e-6 of the live ones on every rank,
+    no ``vco_scan`` launch in the ranks' live and served SLAM;
+    the child itself held the sharded rows to the unsharded Simulator's
+    and the shards' scan to the unsharded kernel."""
     stdout, seconds, _ = child
     mesh = json.loads(next(l for l in stdout.splitlines()
                            if l.startswith('{"mesh"')))["mesh"]
@@ -1217,14 +1231,30 @@ def mesh_phase(child):
             and len(per) == world and all(n == 1 for p in per for n in p)):
         raise AssertionError(f"phase 35: world {run['world']} (want "
                              f"{world}), vco_scan launches {per}")
+    dry, b = mesh["dryrun"]["bundle"], run["bundle"]
+    served = b["served_max_abs_vs_live"]
+    if not (dry["programs"] == world == b["programs"]
+            and dry["all_reduces_per_step"]
+            == mesh["dryrun"]["all_reduces_per_step"]
+            and b["program_all_reduces"] == run["all_reduces_per_step"]
+            and len(served) == world and max(served) <= 1e-6
+            and b["vco_scan_launches"] == [0] * world):
+        raise AssertionError(f"phase 35: bundle {b}, dry run's {dry}")
     mesh["seconds"] = seconds
     log(f"mesh (phase 35): world {world} under NCCL; dry run "
         f"{mesh['dryrun']['all_reduces_per_step']} all-reduces a step, "
-        f"FLOP ratio {mesh['dryrun']['flops_ratio_to_ideal']:.3f}; full "
-        f"width {run['all_reduces_per_step']} all-reduces a step "
+        f"FLOP ratio {mesh['dryrun']['flops_ratio_to_ideal']:.3f}, bundle "
+        f"of {dry['programs']} programs served; full width "
+        f"{run['all_reduces_per_step']} all-reduces a step "
         f"({run['all_reduce_bytes_per_step']} bytes), first rows median "
-        f"{run['first_rows']['median']:.2e} vs unsharded; vco_scan "
-        f"launches a rank a chunk {per}; {seconds:.1f} s")
+        f"{run['first_rows']['median']:.2e} vs unsharded; bundle "
+        f"{b['programs']} programs of {b['program_all_reduces']} "
+        f"all-reduces, export {b['export_s']:.1f} s, {b['mb']:.2f} MB, "
+        f"served vs live max-abs {max(served):.2e} over "
+        f"{run['steps']} steps, served {b['served_steps_per_s']:.1f} vs "
+        f"live {b['live_steps_per_s']:.1f} steps/s, vco_scan launches "
+        f"live and served {b['vco_scan_launches']}; vco_scan launches a "
+        f"rank a chunk {per}; {seconds:.1f} s")
     return mesh
 
 

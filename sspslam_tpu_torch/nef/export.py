@@ -25,9 +25,26 @@ state, so a bundle saved after a training run ships the learned map;
 :meth:`ServingModel.load_state` swaps in a later
 :meth:`Simulator.save_checkpoint` file (of either package).
 
+A Simulator sharded over a model axis (``Simulator(mesh=...)``) writes a
+SHARDED bundle, as the JAX package does: every rank of the mesh calls
+``save_bundle`` together.  The traced step holds its rank's spans and its
+collectives (``_c10d_functional`` all-reduces over the axis's process
+group, named in the program), so there is one program per model
+coordinate, ``step.<axis><c>.pt2``, written by the ranks at coordinate 0
+of every other axis; ``arrays.npz`` holds the WHOLE trees (the same file
+an unsharded bundle of the same build writes); ``meta.json``'s ``"mesh"``
+records the JAX package's keys (``axis_names``, ``shape``, one JSON
+PartitionSpec a state and a parameter leaf) and the port's (the model
+axis, the program of each coordinate, the process group's name that the
+programs carry, the all-reduces a step).  ``ServingModel`` is then called
+on every rank of a process group of the mesh's size
+(``parallel.sharding.spawn`` / ``init_rank``): it rebuilds the mesh, loads
+its coordinate's program with the collectives' group renamed to its own
+model group, slices the whole arrays by the recorded axes, and serves the
+same rows on every rank.
+
 Not carried (ROADMAP.md, "do not carry"): lowering for several
-``platforms``.  Not yet ported: mesh-sharded bundles (a program with
-collectives inside it; ``save_bundle`` refuses a sharded Simulator).
+``platforms``.
 """
 
 from __future__ import annotations
@@ -38,6 +55,7 @@ from typing import Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch.export.graph_signature import InputKind
 from torch.export.passes import move_to_device_pass
 
@@ -48,7 +66,6 @@ __all__ = ["save_bundle", "ServingModel"]
 
 _PROGRAM = "step.pt2"
 _NOT_CARRIED = "not carried into the port (ROADMAP.md, 'do not carry')"
-_NOT_YET = "not ported yet (ROADMAP.md, Queue 1: sharded serving bundles)"
 
 #: dtypes NumPy has no type for: stored as raw bits of the same width
 _RAW_BITS = {torch.bfloat16: np.uint16, torch.float8_e4m3fn: np.uint8,
@@ -137,6 +154,60 @@ def _leaf_tags(spec, tags: dict) -> dict:
     return tags
 
 
+def _spec_json(ax, axis: str) -> list:
+    """A leaf's split axis as the JAX package's JSON PartitionSpec
+    (``_spec_to_json``): ``axis`` at its dimension, None before it."""
+    return [] if ax is None else [None] * ax + [axis]
+
+
+def _spec_axis(entries, axis: str):
+    """The dimension of a JSON PartitionSpec that is split over ``axis``
+    (None: whole)."""
+    for i, e in enumerate(entries):
+        if e == axis or (isinstance(e, list) and axis in e):
+            return i
+    return None
+
+
+def _collectives(gm) -> list:
+    """[(node, position of its ``group_name`` argument)] of every
+    ``_c10d_functional`` op that names a process group in ``gm`` and its
+    submodules (``torch.export`` passes schema arguments by position)."""
+    out = []
+    for mod in gm.modules():
+        if not isinstance(mod, torch.fx.GraphModule):
+            continue
+        for node in mod.graph.nodes:
+            schema = getattr(node.target, "_schema", None)
+            if (node.op != "call_function" or schema is None
+                    or not schema.name.startswith("_c10d_functional::")):
+                continue
+            names = [a.name for a in schema.arguments]
+            if "group_name" in names:
+                out.append((node, names.index("group_name")))
+    return out
+
+
+def _all_reduces(gm) -> int:
+    return sum(1 for node, _ in _collectives(gm)
+               if node.target._schema.name.startswith(
+                   "_c10d_functional::all_reduce"))
+
+
+def _rename_group(gm, old: str, new: str, what: str) -> None:
+    """Point every collective of ``gm`` that names process group ``old``
+    at ``new``; a collective that names another group raises."""
+    for node, i in _collectives(gm):
+        if node.args[i] != old:
+            raise RuntimeError(f"{what}: a collective names process group "
+                               f"{node.args[i]!r}, the bundle records "
+                               f"{old!r}")
+        node.update_arg(i, new)
+    for mod in gm.modules():
+        if isinstance(mod, torch.fx.GraphModule):
+            mod.recompile()
+
+
 class _Step(torch.nn.Module):
     """One step of the executor over flat leaves: the module
     ``torch.export`` traces (the trees are rebuilt from their specs)."""
@@ -181,24 +252,32 @@ def save_bundle(sim: Simulator, path: str, segment_steps: int = 1000,
     ``segment_steps`` is the serving call's granularity (recorded in
     ``meta.json``).  ``platforms`` (lowering for several backends) is not
     carried: anything but None raises.  The program runs on ``sim``'s
-    device; :class:`ServingModel` moves it to the device it serves on."""
+    device; :class:`ServingModel` moves it to the device it serves on.
+
+    A Simulator sharded over a model axis: every rank of its mesh calls
+    this together (it gathers the trees and steps once with its
+    collectives); the bundle is complete when it returns on any rank."""
     if platforms is not None:
         raise NotImplementedError(
             f"save_bundle(platforms=...): multi-platform lowering is "
             f"{_NOT_CARRIED}; the program is moved to the serving device "
             f"at load")
-    if getattr(sim, "shard", None) is not None:
-        raise NotImplementedError(
-            f"save_bundle: a Simulator sharded over a mesh (its step holds "
-            f"collectives): sharded serving is {_NOT_YET}")
     model = sim.model
+    shard = getattr(sim, "shard", None)
     splits = sim._input_splits()
     width = splits[-1][1] if splits else 0
     dense = [bp for bp in model.probes if not bp.sparse]
 
+    params, state = sim.params, sim.state
+    if shard is not None:
+        # the whole trees, in an unsharded bundle's leaf order and layout
+        from ..parallel.sharding import gather_tree
+        params = gather_tree(params, sim._layout[1], sim.mesh, sim.axis)
+        state = sim.whole_state()
     p_leaves, s_leaves = [], []
-    params_spec = _flatten_spec(sim.params, p_leaves)
-    state_spec = _flatten_spec(sim.state, s_leaves)
+    params_spec = _flatten_spec(params, p_leaves)
+    state_spec = _flatten_spec(state, s_leaves)
+    # the rank's slices have the whole trees' structure: one spec serves
     program = _Step(sim._step_fn, splits, state_spec, params_spec,
                     [bp.index for bp in dense])
     args = (_flatten(sim.state),
@@ -208,14 +287,20 @@ def save_bundle(sim: Simulator, path: str, segment_steps: int = 1000,
     # caches at first use (ops/vsa's DFT matrices) must be cached as a
     # tensor, not as the tracer's stand-in
     program(*args)
-    exported = torch.export.export(program, args)
-
     os.makedirs(path, exist_ok=True)
-    torch.export.save(exported, os.path.join(path, _PROGRAM))
+    if shard is None:
+        torch.export.save(torch.export.export(program, args),
+                          os.path.join(path, _PROGRAM))
+        mesh_meta = None
+    else:
+        mesh_meta = _save_programs(sim, program, args, path)
+        if sim.mesh.rank != 0:
+            dist.barrier()
+            return
+
     np.savez(os.path.join(path, "arrays.npz"),
              **{f"p{i}": a for i, a in enumerate(p_leaves)},
              **{f"s{i}": a for i, a in enumerate(s_leaves)})
-
     in_labels = _unique([(n.label or f"input_{i}")
                          for i, n in enumerate(model.input_nodes)])
     pr_labels = _unique([(getattr(bp.obj, "label", None)
@@ -237,10 +322,88 @@ def save_bundle(sim: Simulator, path: str, segment_steps: int = 1000,
                    for lab, bp in zip(pr_labels, dense)],
         "params_spec": params_spec,
         "state_spec": state_spec,
-        "mesh": None,
+        "mesh": mesh_meta,
     }
     with open(os.path.join(path, "meta.json"), "w") as f:
         json.dump(meta, f)
+    if shard is not None:
+        dist.barrier()
+
+
+def _save_programs(sim: Simulator, program, args, path: str) -> dict:
+    """The programs of a sharded ``sim``, one a model coordinate, traced
+    and written by the ranks at coordinate 0 of every other axis; returns
+    ``meta.json``'s ``"mesh"`` (on every rank).  Every rank learns every
+    writer's result before any raises, so no rank waits on one that
+    failed."""
+    mesh, axis = sim.mesh, sim.axis
+    coord = mesh.coord(axis)
+    live = len(sim.shard.log)        # the all-reduces of the real step
+    group = mesh.group(axis).group_name
+    entry = None
+    if all(mesh.coord(a) == 0 for a in mesh.axis_names if a != axis):
+        name = f"step.{axis}{coord}.pt2"
+        try:
+            exported = torch.export.export(program, args)
+            gm = exported.graph_module
+            groups = sorted({n.args[i] for n, i in _collectives(gm)})
+            n_ar = _all_reduces(gm)
+            error = None
+            if n_ar != live:
+                error = (f"the program of {axis} coordinate {coord} holds "
+                         f"{n_ar} all-reduces, the live step {live}")
+            elif groups != [group]:
+                error = (f"the program of {axis} coordinate {coord} names "
+                         f"process groups {groups}, not its {axis} group "
+                         f"{group!r}")
+            else:
+                torch.export.save(exported, os.path.join(path, name))
+        except Exception as e:      # every rank raises below
+            error = f"{axis} coordinate {coord}: {e!r}"
+        entry = {"coord": coord, "file": name, "group": group,
+                 "error": error}
+    entries = [None] * dist.get_world_size()
+    dist.all_gather_object(entries, entry)
+    entries = [e for e in entries if e is not None]
+    errors = [e["error"] for e in entries if e["error"]]
+    if errors:
+        raise RuntimeError("save_bundle: " + "; ".join(errors))
+    entries.sort(key=lambda e: e["coord"])
+    assert [e["coord"] for e in entries] == list(range(mesh.shape[axis]))
+    (group_name,) = {e["group"] for e in entries}
+    return {
+        "axis_names": list(mesh.axis_names),
+        "shape": [mesh.shape[a] for a in mesh.axis_names],
+        "state_specs": [_spec_json(a, axis)
+                        for a in _flatten(sim._layout[0])],
+        "params_specs": [_spec_json(a, axis)
+                         for a in _flatten(sim._layout[1])],
+        "axis": axis,
+        "programs": [e["file"] for e in entries],
+        "group_name": group_name,
+        "all_reduces_per_step": live,
+    }
+
+
+def _serving_mesh(path: str, mm: dict):
+    """The mesh a sharded bundle was exported for, rebuilt over this
+    process group (every rank calls this together).  A process with no
+    group, or a group of another size, raises before any step."""
+    from ..parallel.sharding import make_mesh
+    shape = [int(x) for x in mm["shape"]]
+    n = int(np.prod(shape))
+    if not dist.is_initialized():
+        raise RuntimeError(
+            f"{path}: bundle was exported for a {shape} mesh over axes "
+            f"{mm['axis_names']} ({n} devices); serve it on every rank of "
+            f"a process group of {n} (parallel.sharding.spawn or "
+            f"init_rank): this process has no process group")
+    world = dist.get_world_size()
+    if world != n:
+        raise RuntimeError(
+            f"{path}: bundle was exported for a {shape} mesh ({n} "
+            f"devices); this process group has {world} ranks")
+    return make_mesh(n, tuple(mm["axis_names"]), shape)
 
 
 class ServingModel:
@@ -255,35 +418,58 @@ class ServingModel:
 
     ``xs_table`` rows are the packed input columns (``meta["inputs"]``
     gives each node's column range).  The state carries across calls;
-    :meth:`reset` restores the exported state."""
+    :meth:`reset` restores the exported state.
+
+    A sharded bundle is served by one ServingModel on every rank of a
+    process group of its mesh's size, all made together: ``mesh`` is the
+    rebuilt mesh, the device its rank's (``device`` names the type), and
+    every rank returns the same rows.  ``mesh`` is None otherwise."""
 
     def __init__(self, path: str, *, device="cuda"):
         device = torch.device(device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("ServingModel: device='cuda' but no CUDA "
                                "device is available")
-        program = os.path.join(path, _PROGRAM)
-        if (not os.path.exists(program)
-                and os.path.exists(os.path.join(path, "step.jaxexport"))):
+        if os.path.exists(os.path.join(path, "step.jaxexport")):
             raise NotImplementedError(
-                f"{path} is a JAX package bundle (step.jaxexport, no "
-                f"{_PROGRAM}): StableHLO programs are {_NOT_CARRIED}; "
-                f"export the port's Simulator of the model instead")
+                f"{path} is a JAX package bundle (step.jaxexport): "
+                f"StableHLO programs are {_NOT_CARRIED}; export the port's "
+                f"Simulator of the model instead")
         with open(os.path.join(path, "meta.json")) as f:
             self.meta = json.load(f)
-        if self.meta.get("mesh"):
-            raise NotImplementedError(
-                f"{path} is a mesh-sharded bundle: sharded serving is "
-                f"{_NOT_YET}")
+        mm = self.meta.get("mesh")
+        program = os.path.join(path, _PROGRAM)
+        self.mesh = None
+        if mm:
+            self.mesh = _serving_mesh(path, mm)
+            if device.type != self.mesh.device.type:
+                raise ValueError(f"ServingModel: device {device} on ranks "
+                                 f"of {self.mesh.device.type} devices")
+            device = self.mesh.device
+            program = os.path.join(
+                path, mm["programs"][self.mesh.coord(mm["axis"])])
         self.device = device
         exported = move_to_device_pass(
             torch.export.load(program), device)
         self._module = exported.module()
+        if mm:
+            # the program names the exporting mesh's process group; this
+            # rank reduces over its own group of the serving mesh
+            _rename_group(self._module, mm["group_name"],
+                          self.mesh.group(mm["axis"]).group_name, program)
         with np.load(os.path.join(path, "arrays.npz")) as data:
             p = [data[f"p{i}"] for i in range(
                 sum(1 for k in data.files if k.startswith("p")))]
             s = [data[f"s{i}"] for i in range(
                 sum(1 for k in data.files if k.startswith("s")))]
+        # a sharded bundle's arrays are whole: this rank's slices
+        self._state_axes = [None] * len(s)
+        if mm:
+            self._state_axes = [_spec_axis(e, mm["axis"])
+                                for e in mm["state_specs"]]
+            p = [self._slice(a, _spec_axis(e, mm["axis"]))
+                 for a, e in zip(p, mm["params_specs"])]
+            s = [self._slice(a, ax) for a, ax in zip(s, self._state_axes)]
 
         # each leaf laid out with the strides the step was traced with
         # (the live Simulator's): a kernel picked for a transposed operand
@@ -322,6 +508,15 @@ class ServingModel:
         self._n_steps0 = int(self.meta.get("n_steps_at_export", 0))
         self.n_steps = self._n_steps0
 
+    def _slice(self, arr: np.ndarray, ax) -> np.ndarray:
+        """This rank's slice of a whole leaf along ``ax`` (None: whole)."""
+        if ax is None:
+            return arr
+        axis = self.meta["mesh"]["axis"]
+        n, c = self.mesh.shape[axis], self.mesh.coord(axis)
+        size = arr.shape[ax] // n
+        return np.take(arr, range(c * size, (c + 1) * size), ax)
+
     @property
     def input_width(self) -> int:
         return int(self.meta["input_width"])
@@ -333,9 +528,11 @@ class ServingModel:
 
     def load_state(self, checkpoint_path: str) -> None:
         """Swap in a state saved by ``Simulator.save_checkpoint`` (a later
-        training checkpoint of the same model, from either package); its
-        step counter is restored too, so subsampled probes stay on the
-        originating Simulator's sampling grid."""
+        training checkpoint of the same model, from either package, sharded
+        or not: the file holds the whole state, which a sharded bundle's
+        ranks slice by its state axes); its step counter is restored too,
+        so subsampled probes stay on the originating Simulator's sampling
+        grid."""
         if (not os.path.exists(checkpoint_path)
                 and os.path.exists(checkpoint_path + ".npz")):
             checkpoint_path += ".npz"
@@ -346,7 +543,8 @@ class ServingModel:
         if n != len(self._state):
             raise ValueError(f"checkpoint has {n} state leaves, this bundle "
                              f"{len(self._state)}")
-        for dst, arr in zip(self._state, leaves):
+        for dst, arr, ax in zip(self._state, leaves, self._state_axes):
+            arr = self._slice(arr, ax)
             if tuple(arr.shape) != tuple(dst.shape):
                 raise ValueError(f"checkpoint leaf of shape {arr.shape} does "
                                  f"not fit the state's {tuple(dst.shape)}")
@@ -372,7 +570,7 @@ class ServingModel:
         if g is None:
             g = self._graphs[steps] = _capture(
                 self.device, self._state + [self._row], self._row,
-                self._advance, steps)
+                self._advance, steps, same_stream=self.mesh is not None)
         return g
 
     def step_segment(self, xs_packed) -> Dict[str, torch.Tensor]:

@@ -17,6 +17,10 @@ N ranks (:func:`.sharding.spawn`: NCCL on ``cuda:{rank}``, gloo with
   analysis);
 - trains every solved decoder the step reads with ``fit`` on a "data"
   axis of N (one episode a rank), two Adam steps: the leaves must move;
+- saves a serving bundle of that sharded Simulator (one program a
+  model coordinate) and serves one 4-step segment of zero rows from it
+  with ``ServingModel`` on every rank: the rows must be finite and the
+  same on every rank (the JAX dry run's bundle step);
 - with N >= 4 (even), runs dp x tp episodes on a (2, N/2) mesh.
 
     python -m sspslam_tpu_torch.parallel.dryrun --world N [--device cpu]
@@ -123,6 +127,36 @@ def rank_cost(sim) -> dict:
             "state_bytes": _bytes(sim.state)}
 
 
+def _bundle_step(sim, mesh, device) -> dict:
+    """The sharded serving bundle of ``sim`` (saved by every rank into one
+    temporary directory, 4-step segments), served by ``ServingModel`` on
+    every rank for one segment of zero rows: the rows must be finite and
+    the same on every rank."""
+    import shutil
+    import tempfile
+    import torch.distributed as dist
+    from ..nef import ServingModel, save_bundle
+    from .sharding import assert_same_on_ranks
+    where = [tempfile.mkdtemp(prefix="sspslam_dryrun_bundle_")
+             if mesh.rank == 0 else None]
+    dist.broadcast_object_list(where, 0)
+    try:
+        save_bundle(sim, where[0], segment_steps=4)
+        m = ServingModel(where[0], device=device)
+        emits = m.step_segment(np.zeros((4, m.input_width), np.float32))
+        rows = [v.cpu() for v in emits.values()]
+        assert rows and all(bool(torch.isfinite(v).all()) for v in rows)
+        assert_same_on_ranks(rows, None, "the served rows")
+        mm = m.meta["mesh"]
+        return {"programs": len(mm["programs"]),
+                "all_reduces_per_step": mm["all_reduces_per_step"],
+                "rows": list(rows[0].shape)}
+    finally:
+        dist.barrier()
+        if mesh.rank == 0:
+            shutil.rmtree(where[0], ignore_errors=True)
+
+
 def _rank(rank, world, device):
     from ..nef.graph import EnsembleArray
     from .. import train
@@ -146,6 +180,7 @@ def _rank(rank, world, device):
                          "the probe rows")
     out["rows"] = rows.shape
     out["mesh_stats"] = sim.mesh_stats()
+    out["bundle"] = _bundle_step(sim, mesh, device)
     cost = rank_cost(sim)
     single, _ = build_tiny_slam(device=device)
     whole = rank_cost(single)
@@ -223,6 +258,7 @@ def main(argv=None) -> dict:
            "bytes_ratio_to_ideal": r0["bytes_ratio"],
            "fit_losses": r0["fit_losses"],
            "dp_tp_rows": list(r0.get("dp_tp_rows", ())),
+           "bundle": r0["bundle"],
            "seconds": time.perf_counter() - t0}
     print(json.dumps(row), flush=True)
     return row

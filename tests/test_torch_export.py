@@ -333,10 +333,13 @@ def test_port_bundle_matches_jax_bundle(parity, neuron):
 @pytest.mark.parametrize("refusal", ["platforms", "mesh", "jax_only"])
 def test_not_carried_refusals(parity, basic, tmp_path, refusal):
     """Multi-platform lowering and the JAX package's StableHLO bundles are
-    not carried, sharded bundles not ported yet: each raises, naming the
-    list or the queue."""
-    match = "Queue 1" if refusal == "mesh" else "do not carry"
-    with pytest.raises(NotImplementedError, match=match):
+    not carried: each raises, naming the list.  A sharded bundle served in
+    a process with no process group raises, naming the mesh and how to
+    start its ranks (never an unsharded run)."""
+    error, match = NotImplementedError, "do not carry"
+    if refusal == "mesh":
+        error, match = RuntimeError, r"\[8\] mesh.*spawn.*no process group"
+    with pytest.raises(error, match=match):
         if refusal == "platforms":
             sim, _, _ = _sim(N)
             save_bundle(sim, str(tmp_path / "b"), segment_steps=SEG,

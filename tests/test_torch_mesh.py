@@ -20,9 +20,24 @@ port's unsharded Simulator.
   ``reset`` replays the first half bit for bit.
 - The clean-up's argmax over a bank split over 4 ranks, on constructed
   ties across and within ranks: ``jnp.argmax``'s first index.
-- More CUDA ranks than cards raise before anything starts; a sharded
-  Simulator's serving bundle is refused (not ported yet).
+- The sharded serving bundle of those runs (saved by the ranks from the
+  fresh state, one program a model coordinate): ``ServingModel`` on
+  every rank serves the first half from the bundle's state, then (after
+  ``reset`` and a segment) the second half from ``load_state`` of the
+  half-way checkpoint: rows within 1e-6 of the live sharded rows (equal
+  in practice) and within 5e-4 of the JAX mesh rows; each program holds
+  as many all-reduces as the live step; ``arrays.npz`` is an unsharded
+  bundle's of the same build, leaf for leaf; a serving world of another
+  size raises before any step.  At world 2
+  the PI network's served rows lie within 5e-4 of the JAX package's own
+  sharded ``save_bundle`` / ``ServingModel`` of ``Simulator(mesh=
+  make_mesh(2))``.  At world 4, a (2, 2) ("data", "model") mesh: the
+  data-1 ranks serve a program that names another process group than
+  theirs, renamed to their own, and every rank gives the live rows.
+- More CUDA ranks than cards raise before anything starts.
 """
+
+import os
 
 import numpy as np
 import pytest
@@ -31,7 +46,9 @@ import torch
 import torch_mesh_ranks as R
 from torch_parity import spawn_ranks
 
+from sspslam_tpu.nef import ServingModel as JaxServingModel
 from sspslam_tpu.nef import Simulator as JaxSimulator
+from sspslam_tpu.nef import save_bundle as jax_save_bundle
 from sspslam_tpu.parallel import make_mesh as jax_make_mesh
 from sspslam_tpu.parallel import sharding as jsh
 from sspslam_tpu.ops.quantize import QTensor as JaxQTensor
@@ -44,7 +61,9 @@ from sspslam_tpu_torch.parallel import sharding as psh
 JAX = R.lib("sspslam_tpu")
 MESH_TOL = 5e-4
 CKPT_RTOL = 1e-4
+SERVED_TOL = 1e-6
 STEPS = {"pi": 100, "slam": 200}
+DP_TP_STEPS = 60
 
 
 @pytest.fixture(autouse=True)
@@ -78,13 +97,18 @@ def world_runs(request, tmp_path_factory):
     world = request.param
     tmp = tmp_path_factory.mktemp(f"mesh{world}")
     ck = {name: str(tmp / f"{name}.npz") for name in STEPS}
-    jobs = [("run_sharded", (name, {}, STEPS[name], {}, ck[name]))
+    jobs = [("run_sharded", (name, {}, STEPS[name], {}, ck[name],
+                             str(tmp / f"{name}_bundle")))
             for name in STEPS]
+    # a (data, model) mesh of (2, world / 2): the data-1 ranks serve a
+    # program that names the data-0 row's model group
+    jobs.append(("run_dp_tp_bundle", ("pi", DP_TP_STEPS, (2, world // 2),
+                                      str(tmp / "dp_tp_bundle"))))
     if world == 4:
         jobs.append(("run_tie", tie_case()))
     ranks = spawn_ranks(R.run_jobs, world, tmp, args=(jobs,))
     out = {"world": world, "ranks": ranks, "ckpt": ck, "jax": {},
-           "jax_ckpt": {}, "unsharded": {}}
+           "jax_ckpt": {}, "unsharded": {}, "tmp": tmp}
     for name, n in STEPS.items():
         out["jax_ckpt"][name] = str(tmp / f"jax_{name}.npz")
         out["jax"][name] = jax_mesh_run(name, world, n, n // 2,
@@ -112,7 +136,6 @@ def test_sharded_run_matches_jax_mesh_and_unsharded(world_runs, name):
         assert np.abs(got - plain).max() <= MESH_TOL * scale, (name, k)
     stats = first["stats"]
     assert stats["all_reduces"] >= 1 and stats["bytes"] > 0, stats
-    assert first["bundle_refused"]
     if name == "slam":
         # the bucketed step: as many all-reduces as the JAX package's
         # GSPMD program issues at d = 97 (docs/MULTICHIP.md), no more
@@ -152,6 +175,125 @@ def test_checkpoint_of_sharded_run(world_runs, name):
                               res["traces"][k][n // 2:])
         assert np.array_equal(res["after_reset"][k],
                               res["traces"][k][:n // 2])
+
+
+def _served(world_runs, name):
+    i = list(STEPS).index(name)
+    return i, [res[i] for res in world_runs["ranks"]]
+
+
+@pytest.mark.parametrize("name", ["pi", "slam"])
+def test_served_sharded_bundle_matches_live_and_jax_mesh(world_runs, name):
+    i, ranks = _served(world_runs, name)
+    for r, res in enumerate(ranks):
+        for k, (got, live) in enumerate(zip(res["served"]["rows"],
+                                            res["traces"])):
+            assert got.shape == live.shape and np.all(np.isfinite(got))
+            err = float(np.abs(got - live).max())
+            print(f"world {world_runs['world']} {name} rank {r} probe {k}:"
+                  f" served vs live max-abs {err}")
+            assert err <= SERVED_TOL, (r, k, err)
+            want = world_runs["jax"][name][k]
+            scale = max(1.0, float(np.abs(want).max()))
+            assert np.abs(got - want).max() <= MESH_TOL * scale, (r, k)
+
+
+@pytest.mark.parametrize("name", ["pi", "slam"])
+def test_sharded_bundle_programs_and_arrays(world_runs, name):
+    """One program a model coordinate, each with the live step's
+    all-reduces; the whole trees once, as an unsharded bundle of the same
+    build writes them; the JAX package's mesh keys."""
+    world = world_runs["world"]
+    i, ranks = _served(world_runs, name)
+    mm = ranks[0]["served"]["meta_mesh"]
+    assert mm["axis_names"] == ["model"] and mm["shape"] == [world]
+    assert mm["programs"] == [f"step.model{c}.pt2" for c in range(world)]
+    bundle = world_runs["tmp"] / f"{name}_bundle"
+    assert sorted(os.listdir(bundle)) == sorted(
+        ["arrays.npz", "meta.json"] + mm["programs"])
+    live = ranks[0]["stats"]["all_reduces"]
+    assert [res["served"]["program_all_reduces"] for res in ranks] == \
+        [live] * world, live
+    assert mm["all_reduces_per_step"] == live
+    with np.load(bundle / "arrays.npz") as f:
+        got = {k: f[k] for k in f.files}
+    (want,) = [res["served"]["plain_arrays"] for res in ranks
+               if "plain_arrays" in res["served"]]
+    assert sorted(got) == sorted(want)
+    assert len(mm["params_specs"]) == sum(k[0] == "p" for k in want)
+    assert len(mm["state_specs"]) == sum(k[0] == "s" for k in want)
+    for k in want:
+        assert got[k].dtype == want[k].dtype and np.array_equal(
+            got[k], want[k]), k
+    split = [e for e in mm["params_specs"] + mm["state_specs"] if e]
+    assert split and all(e[-1] == "model" for e in split)
+
+
+@pytest.mark.parametrize("name", ["pi", "slam"])
+def test_served_sharded_bundle_resumes_and_resets(world_runs, name):
+    """``load_state`` of the sharded run's half-way checkpoint (the whole
+    state in one file) serves the live second half from a state it must
+    replace, ``reset`` the first segment again after the first half; a
+    serving world of another size raises before any step."""
+    n = STEPS[name]
+    world = world_runs["world"]
+    i, ranks = _served(world_runs, name)
+    for res in ranks:
+        served = res["served"]
+        for k, live in enumerate(res["traces"]):
+            assert np.abs(served["resumed"][k] - live[n // 2:]).max() \
+                <= SERVED_TOL
+            first = live[:R.BUNDLE_SEGMENT]
+            assert np.abs(served["after_reset"][k] - first).max() \
+                <= SERVED_TOL
+        msg = served["wrong_world"]
+        assert msg is not None and f"[{world + 1}] mesh" in msg \
+            and f"has {world} ranks" in msg, msg
+        assert served["groups"] == ("0", "0")
+
+
+def test_dp_tp_bundle_renames_process_group(world_runs):
+    """A (2, world / 2) ("data", "model") mesh: the programs (traced at
+    data coordinate 0) name that row's model group; every rank serves
+    over its own model group of a mesh built anew, and gives the live
+    rows."""
+    jobs = [res[len(STEPS)] for res in world_runs["ranks"]]
+    recorded = {j["groups"][1] for j in jobs}
+    assert len(recorded) == 1
+    assert len(jobs[0]["programs"]) == world_runs["world"] // 2
+    (recorded,) = recorded
+    for r, j in enumerate(jobs):
+        own_then, _, own_now = j["groups"]
+        assert (own_then == recorded) == (j["coords"][0] == 0), j["groups"]
+        assert own_now != recorded
+        for got, live in zip(j["served"], j["live"]):
+            assert got.shape == live.shape and np.all(np.isfinite(got))
+            assert np.abs(got - live).max() <= SERVED_TOL, r
+    # the data-1 replica serves over another group than the data-0 one
+    assert {j["groups"][2] for j in jobs if j["coords"][0] == 1}.isdisjoint(
+        {j["groups"][2] for j in jobs if j["coords"][0] == 0})
+
+
+def test_served_bundle_matches_jax_sharded_serving(world_runs, tmp_path):
+    """tests/test_export.py::test_mesh_bundle_roundtrip's counterpart:
+    the JAX package's own sharded bundle of the PI network at the same
+    mesh, served by its ServingModel, against the port's served rows."""
+    name, n, world = "pi", STEPS["pi"], world_runs["world"]
+    net, probes = R.NETS[name](JAX)
+    jsim = JaxSimulator(net, seed=0, mesh=jax_make_mesh(world),
+                        **R.sim_kwargs(name, JAX))
+    xs = np.asarray(jsim._pack_cols(jsim._tabulate_inputs(n)), np.float32)
+    jax_save_bundle(jsim, str(tmp_path / "jax"), segment_steps=n // 2)
+    jm = JaxServingModel(str(tmp_path / "jax"))
+    assert jm.mesh is not None and jm.mesh.devices.size == world
+    (label,) = [d["label"] for d in jm.meta["probes"]]
+    want = jm.run(xs)[label]
+    i, ranks = _served(world_runs, name)
+    for res in ranks:
+        got = res["served"]["rows"][0]
+        assert got.shape == want.shape
+        scale = max(1.0, float(np.abs(want).max()))
+        assert np.abs(got - want).max() <= MESH_TOL * scale
 
 
 def tie_case():

@@ -9,7 +9,8 @@ on gloo ranks on the CPU.
   ranks, and at most 8 all-reduces a step.
 - ``python -m sspslam_tpu_torch.parallel.dryrun --world 4 --device cpu``
   exits 0: the sharded SLAM steps, the per-rank FLOP ratio under 3.0,
-  the data-parallel fit moving its leaves, dp x tp episodes.
+  its serving bundle served on the ranks (one program a rank), the
+  data-parallel fit moving its leaves, dp x tp episodes.
 - ``python -m sspslam_tpu_torch.experiments.tp_scaling --device cpu`` at
   toy widths over 1 and 2 ranks: a row a size, the per-rank FLOPs under
   the one-rank build's, collectives only when sharded; asking for more
@@ -64,6 +65,10 @@ def test_dryrun_cli_world_four_on_cpu():
     assert row["flops_ratio_to_ideal"] < 3.0
     assert 1 <= row["all_reduces_per_step"] <= 8
     assert row["dp_tp_rows"] == [2, 8, 25]
+    # the bundle step: one program a model coordinate, each with the
+    # live step's all-reduces, one served segment of 4 rows
+    assert row["bundle"] == {"programs": 4, "all_reduces_per_step":
+                             row["all_reduces_per_step"], "rows": [4, 25]}
 
 
 def test_tp_scaling_cli_on_cpu():

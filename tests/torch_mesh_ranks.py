@@ -7,11 +7,14 @@ those of tests/test_parallel.py (the JAX package's mesh tests).
 """
 
 import importlib
+import json
+import os
 from types import SimpleNamespace
 
 import numpy as np
 import torch
 
+from sspslam_tpu_torch.nef import ServingModel, save_bundle
 from sspslam_tpu_torch.parallel.sharding import make_mesh
 
 BOUNDS = 1.1 * np.tile(np.array([-1, 1.0]), (2, 1))
@@ -26,6 +29,9 @@ def lib(package):
 
 
 PORT = lib("sspslam_tpu_torch")
+
+#: the segment of the mesh tests' serving bundles
+BUNDLE_SEGMENT = 10
 
 
 def space(L, d=31):
@@ -160,14 +166,21 @@ def build_sim(name, kw, mesh=None, device="cpu", spiking=False, **sim_kw):
     return sim, probes
 
 
-def run_sharded(rank, world, device, name, kw, n_steps, sim_kw, ckpt=None):
+def run_sharded(rank, world, device, name, kw, n_steps, sim_kw, ckpt=None,
+                bundle=None):
     """Rank ``rank`` of a ``world``-way model axis: build ``name``, run
     ``n_steps`` (in two segments, a checkpoint between them when
     ``ckpt`` is given), and return every probe's trace, the collectives
-    of a step and the layout's split axes."""
+    of a step and the layout's split axes.  ``bundle`` (with ``ckpt``): a
+    directory the ranks save a serving bundle into before the run
+    (segments of BUNDLE_SEGMENT steps), served after it
+    (:func:`serve_bundle`)."""
     mesh = make_mesh(world)
     sim, probes = build_sim(name, kw, mesh=mesh, device=device, **sim_kw)
     half = n_steps // 2
+    if bundle is not None:
+        xs = sim._pack_cols(sim._tabulate_inputs(n_steps))
+        save_bundle(sim, bundle, segment_steps=BUNDLE_SEGMENT)
     sim.run_steps(half)
     if ckpt is not None:
         sim.save_checkpoint(ckpt)
@@ -175,8 +188,10 @@ def run_sharded(rank, world, device, name, kw, n_steps, sim_kw, ckpt=None):
     whole = sim.whole_state()
     out = {"traces": [sim.data[p] for p in probes],
            "stats": sim.mesh_stats(),
-           "final_state": _host_tree(whole),
-           "bundle_refused": _bundle_refused(sim)}
+           "final_state": _host_tree(whole)}
+    if bundle is not None:
+        out["served"] = serve_bundle(rank, world, device, sim, probes,
+                                     bundle, xs, ckpt, name, kw, sim_kw)
     if ckpt is not None:
         # a fresh sharded Simulator resumed from the file matches the run
         sim2, probes2 = build_sim(name, kw, mesh=mesh, device=device,
@@ -190,14 +205,108 @@ def run_sharded(rank, world, device, name, kw, n_steps, sim_kw, ckpt=None):
     return out
 
 
-def _bundle_refused(sim):
-    """save_bundle refuses a sharded Simulator, naming the queue."""
-    from sspslam_tpu_torch.nef import save_bundle
+def probe_labels(sim, probes, meta):
+    """The bundle's label of each of ``probes``."""
+    by_index = {d["index"]: d["label"] for d in meta["probes"]}
+    return [by_index[next(bp.index for bp in sim.model.probes
+                          if bp.obj is p)] for p in probes]
+
+
+def serve_bundle(rank, world, device, sim, probes, bundle, xs, ckpt, name,
+                 kw, sim_kw):
+    """The sharded bundle in ``bundle`` (saved from ``sim``'s fresh state)
+    served on every rank: the first half of ``xs`` from the bundle's
+    state; ``reset`` and the first segment again; ``load_state`` of the
+    half-way checkpoint ``ckpt`` and the second half (both from a state
+    they must replace); the all-reduces in this rank's program; a serving
+    world of another size refused.  One rank a network (rank 0 for "pi",
+    the last for the others) also returns the arrays of an unsharded
+    bundle of the same build (the builder padding batched groups to
+    ``world``, as the sharded build does)."""
+    m = ServingModel(bundle, device=device)
+    labels = probe_labels(sim, probes, m.meta)
+    half = len(xs) // 2
+    mm = m.meta["mesh"]
+    first = _rows(m.run(xs[:half]), labels)
+    m.reset()
+    out = {"after_reset": _rows(m.run(xs[:BUNDLE_SEGMENT]), labels),
+           "meta_mesh": mm,
+           "groups": (mm["group_name"], m.mesh.group("model").group_name),
+           "program_all_reduces": program_all_reduces(m._module)}
+    m.load_state(ckpt)
+    out["resumed"] = _rows(m.run(xs[half:]), labels)
+    out["rows"] = [np.concatenate(ab) for ab in zip(first, out["resumed"])]
+    out["wrong_world"] = _wrong_world(bundle, world, rank)
+    if rank == (0 if name == "pi" else world - 1):
+        out["plain_arrays"] = plain_bundle_arrays(name, kw, sim_kw, world,
+                                                  bundle + "_plain")
+    return out
+
+
+def _rows(served, labels):
+    return [served[lab] for lab in labels]
+
+
+def _wrong_world(bundle, world, rank):
+    """The error ``ServingModel`` raises on this process group for a copy
+    of the bundle's meta.json that records a mesh of ``world + 1``."""
+    wrong = f"{bundle}_wrong{rank}"
+    os.makedirs(wrong, exist_ok=True)
+    with open(os.path.join(bundle, "meta.json")) as f:
+        meta = json.load(f)
+    meta["mesh"]["shape"] = [world + 1]
+    with open(os.path.join(wrong, "meta.json"), "w") as f:
+        json.dump(meta, f)
     try:
-        save_bundle(sim, "unused", segment_steps=10)
-    except NotImplementedError as e:
-        return "Queue 1" in str(e)
-    return False
+        ServingModel(wrong, device="cpu")
+    except RuntimeError as e:
+        return str(e)
+    return None
+
+
+def program_all_reduces(module) -> int:
+    """The all-reduce nodes of a loaded program's graph."""
+    return sum(1 for n in module.graph.nodes if n.op == "call_function"
+               and "all_reduce" in str(n.target)
+               and "wait" not in str(n.target))
+
+
+def plain_bundle_arrays(name, kw, sim_kw, world, path):
+    """The arrays of an unsharded bundle of network ``name``, built as a
+    ``world``-way mesh builds it (batched groups padded to ``world``)."""
+    from sspslam_tpu_torch.nef import simulator
+    build = simulator.build
+    simulator.build = lambda *a, **k: build(*a, **{**k,
+                                                   "pad_batched_to": world})
+    try:
+        sim, _ = build_sim(name, kw, **sim_kw)
+    finally:
+        simulator.build = build
+    save_bundle(sim, path, segment_steps=BUNDLE_SEGMENT)
+    with np.load(os.path.join(path, "arrays.npz")) as f:
+        return {k: f[k] for k in f.files}
+
+
+def run_dp_tp_bundle(rank, world, device, name, n_steps, shape, bundle):
+    """A ("data", "model") mesh of ``shape``: the bundle of the sharded
+    Simulator saved from its fresh state (the programs traced at data
+    coordinate 0 name that row's model group), the live run, then the
+    bundle served on every rank over a mesh built anew; returns the live
+    and served rows and the group names (this rank's model group when
+    saved, the one the programs record, the one it serves over)."""
+    mesh = make_mesh(world, ("data", "model"), shape)
+    sim, probes = build_sim(name, {}, mesh=mesh, device=device)
+    xs = sim._pack_cols(sim._tabulate_inputs(n_steps))
+    save_bundle(sim, bundle, segment_steps=BUNDLE_SEGMENT)
+    sim.run_steps(n_steps)
+    m = ServingModel(bundle, device=device)
+    return {"live": [sim.data[p] for p in probes],
+            "served": _rows(m.run(xs), probe_labels(sim, probes, m.meta)),
+            "groups": (mesh.group("model").group_name,
+                       m.meta["mesh"]["group_name"],
+                       m.mesh.group("model").group_name),
+            "coords": (mesh.coord("data"), mesh.coord("model")),
+            "programs": m.meta["mesh"]["programs"]}
 
 
 def _host_tree(tree):
