@@ -292,6 +292,22 @@ result line):
    step, the export's seconds and megabytes, and served and live steps/s
    (the median of the segments after the first).  0 VCO launches on the
    served path.
+36. the program's spans (``utils.profiling``; run after phase 31, while
+   the card is quiet) on the benchmark cell's episode at the main path's
+   width (``FastPathIntegrator.run`` of 20,000 steps: the velocity and
+   correction tables up, two launches, the trace down): 20 episodes under
+   ``torch.profiler``, split by span (``pi.initial_state``, ``pi.run``,
+   ``pi.upload``, ``vco_scan.call``, ``pi.wait``, ``pi.download``, the
+   run's self time) beside the kernel's records, with two
+   ``vco_scan.call`` a ``pi.run``, ``pi.run`` + ``pi.initial_state``
+   within 3 % of the episode on the host clock, ``pi.wait`` 1.8-2.05 x
+   the kernel's mean record and no device record named after a span;
+   ``trace_run`` around 3 episodes, whose Chrome trace must show each
+   kernel record starting after its ``vco_scan.call`` span starts and
+   each episode's second kernel ending before its ``pi.wait`` ends (the
+   margins and the span clock's offset printed); then the cost of
+   tracing: 8 pairs of 20 episodes with ``profiling.tracing()`` off and
+   on, in turns.
 
 Every CLI subprocess (phases 10, 13, 18, 21-26 and 28-30) runs its module
 as ``python -m`` does, through runpy, and then prints the VCO kernel's
@@ -304,14 +320,14 @@ after phase 17, while the smoke's own process runs the in-process checks
 of phases 28-30, none of which is timed, phase 32 and phase 34's SLAM
 worlds.
 
-The last fourteen lines of standard output are one JSON object of the
+The last fifteen lines of standard output are one JSON object of the
 Simulator's numbers, one of the SLAM numbers, one of phases 14-18
 (``family``), one of phases 19-21 (``scaled``), one of phases 22-24
 (``train``), one of phases 25-27 (``serving``), one of phases 28-30
 (``clis``), one of phases 31-32 (``sharded``, ``demos``), one of phase 33
 (``bench``), one of phase 34 (``reference``), one of phase 35
-(``mesh``), the card's name and power limit, one JSON object describing
-the kernel, and the result line.
+(``mesh``), one of phase 36 (``tracing``), the card's name and power
+limit, one JSON object describing the kernel, and the result line.
 
 To compare the kernel of two checkouts on one card, time each in turns
 within one command (the other commit unpacked into a git-ignored
@@ -323,6 +339,8 @@ directory, e.g. ``git archive <commit> | tar -x -C build/parent``):
 ``--time ROOT`` imports ``sspslam_tpu_torch`` from ROOT, times its
 ``vco_scan`` at the cluster size it picks on the main path's first chunk
 and prints one JSON line; it runs none of the phases above.
+``--tracing`` runs phase 36 alone and prints its JSON line and the card's
+name and power limit.
 """
 
 from __future__ import annotations
@@ -415,6 +433,20 @@ _START = time.perf_counter()
 def log(msg):
     """One line of the run's record, after the seconds since the start."""
     print(f"[{time.perf_counter() - _START:6.0f} s] {msg}", flush=True)
+
+
+def reset_vco_launches():
+    """Zero the port's counters (``utils.profiling``), the VCO kernel's
+    launches among them."""
+    from sspslam_tpu_torch.utils import profiling
+    profiling.reset()
+
+
+def vco_launches() -> int:
+    """The VCO kernel's launches in this process since the last
+    :func:`reset_vco_launches`."""
+    from sspslam_tpu_torch.utils import profiling
+    return profiling.counter("vco_scan.launches")
 
 
 def nvidia_smi(query="name,power.limit") -> str:
@@ -710,7 +742,7 @@ def main_path(fpi, vco, space, first_kernel, first_plain):
     plain version's trace of it (median |diff| <= LONG_MEDIAN_TOL).
     Returns the launches and the whole trace (CHUNK + TIMED, d)."""
     vels = traffic()
-    vco.vco_scan.launches = 0
+    reset_vco_launches()
     t0 = time.perf_counter()
     warm = fpi.run(vels[:CHUNK])
     log(f"warm-up chunk: {time.perf_counter() - t0:.3f} s")
@@ -721,7 +753,7 @@ def main_path(fpi, vco, space, first_kernel, first_plain):
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     after = nvidia_smi(ClockSampler.QUERY)
-    launches = vco.vco_scan.launches
+    launches = vco_launches()
     log(f"main path: {TIMED} steps in {seconds:.4f} s = "
         f"{TIMED / seconds:.0f} steps/s; vco_scan launches {launches}")
     log(f"main-path window ({ClockSampler.QUERY}): just before "
@@ -877,7 +909,7 @@ def simulator_path(space, vco, fast_trace):
 
     # steps/s: graphs of U steps, then eager; the main path's window
     rates, first = {}, None
-    vco.vco_scan.launches = 0
+    reset_vco_launches()
     for U in GRAPH_UNITS:
         sim._graph_steps = U
         rates[U], trace, _ = timed_run(sim, probe)
@@ -888,7 +920,7 @@ def simulator_path(space, vco, fast_trace):
         elif not np.array_equal(trace, first):
             raise AssertionError(f"the trace with graphs of {U} steps "
                                  f"differs from the first")
-    launches = vco.vco_scan.launches
+    launches = vco_launches()
     if launches != 0:
         raise AssertionError(f"the Simulator path launched vco_scan "
                              f"{launches} times")
@@ -1037,9 +1069,9 @@ def simulator_accuracy(space_cls):
 _COUNTED_CLI = """
 import runpy, sys
 name, sys.argv = sys.argv[1], sys.argv[1:]
-from sspslam_tpu_torch.ops import vco_scan
+from sspslam_tpu_torch.utils import profiling
 runpy.run_module(name, run_name="__main__", alter_sys=True)
-print(f"vco_scan launches: {vco_scan.vco_scan.launches}")
+print(f"vco_scan launches: {profiling.counter('vco_scan.launches')}")
 """
 
 
@@ -1342,7 +1374,7 @@ def slam_path(space, vco):
     from sspslam_tpu_torch.utils.profiling import print_utilization_summary
     world = slam_world()
     path = world[0]
-    vco.vco_scan.launches = 0
+    reset_vco_launches()
     sim, probe, build_s = slam_simulator(space, world)
     n = sum(be.k * be.n if be.batched else be.n for be in sim.model.ensembles)
     log(f"SLAM build (d={space.ssp_dim}, {n} neurons): {build_s:.1f} s")
@@ -1411,7 +1443,7 @@ def slam_path(space, vco):
     del sim
 
     # (e) this path reaches no Pallas kernel in the JAX package
-    launches = vco.vco_scan.launches
+    launches = vco_launches()
     if launches != 0:
         raise AssertionError(f"the SLAM path launched vco_scan {launches} "
                              f"times")
@@ -1559,14 +1591,14 @@ def family_models(space, vco):
     on bench.py --model slam's world; the VCO kernel launches 0 times."""
     from sspslam_tpu_torch.experiments.common import slam_world
     world = slam_world()
-    vco.vco_scan.launches = 0
+    reset_vco_launches()
     out = {}
     sim, probe, build_s = gated_simulator(space, world)
     out["gated"] = full_checks("SLAMGatedNetwork", sim, probe, space,
                                world[0], build_s)
-    out["gated"]["vco_scan_launches"] = vco.vco_scan.launches
+    out["gated"]["vco_scan_launches"] = vco_launches()
     del sim
-    vco.vco_scan.launches = 0
+    reset_vco_launches()
     sim, probe, build_s = view_simulator(space, world)
     out["view"] = full_checks("SLAMViewNetwork", sim, probe, space,
                               world[0], build_s)
@@ -1578,7 +1610,7 @@ def family_models(space, vco):
     out["view"]["anchor_graph_vs_eager_max_abs"], \
         out["view"]["anchor_steps_per_s_eager"] = replay_vs_eager(
             sim, probe, "SLAMViewNetwork, auto-recovery + anchor")
-    out["view"]["vco_scan_launches"] = vco.vco_scan.launches
+    out["view"]["vco_scan_launches"] = vco_launches()
     del sim
     for name in ("gated", "view"):
         if out[name]["vco_scan_launches"] != 0:
@@ -1598,7 +1630,7 @@ def cleanup_methods(vco):
     from sspslam_tpu_torch.experiments.common import slam_world, slam_simulator
     from sspslam_tpu_torch import HexagonalSSPSpace
     space = make_space(HexagonalSSPSpace)
-    vco.vco_scan.launches = 0
+    reset_vco_launches()
     out = {}
     t0 = time.perf_counter()
     history = space.train_decoder_net(load_file=False, save_file=False,
@@ -1642,7 +1674,7 @@ def cleanup_methods(vco):
                 ("graph_vs_eager_max_abs", "steps_per_s_eager"),
                 replay_vs_eager(sim, probe, what)))
         del sim
-    out["vco_scan_launches"] = vco.vco_scan.launches
+    out["vco_scan_launches"] = vco_launches()
     if out["vco_scan_launches"] != 0:
         raise AssertionError("the clean-up paths launched vco_scan")
     return out
@@ -1670,7 +1702,7 @@ def pi_variants(space, vco):
         "bcsgcs": lambda: PathIntegrationBCsGCs(space, N_NEURONS, N_NEURONS,
                                                 0.05),
     }
-    vco.vco_scan.launches = 0
+    reset_vco_launches()
     out = {}
     for name, make in makers.items():
         with Network(seed=SEED) as net:
@@ -1705,7 +1737,7 @@ def pi_variants(space, vco):
                      "graph_vs_eager_max_abs": err,
                      "decoded_error_at_end": dist}
         del sim
-    out["vco_scan_launches"] = vco.vco_scan.launches
+    out["vco_scan_launches"] = vco_launches()
     if out["vco_scan_launches"] != 0:
         raise AssertionError("the PI variants launched vco_scan")
     return out
@@ -1792,7 +1824,7 @@ def quantised_slam(space, vco, f32):
     the VCO kernel launches 0 times."""
     from sspslam_tpu_torch.experiments.common import slam_world, slam_simulator
     world = slam_world()
-    vco.vco_scan.launches = 0
+    reset_vco_launches()
     out = {}
     for kind in ("int8", "fp8"):
         what = f"SLAM {kind}"
@@ -1841,7 +1873,7 @@ def quantised_slam(space, vco, f32):
         r["timed_window_nvidia_smi"] = window
         out[kind] = r
         del sim
-    out["vco_scan_launches"] = vco.vco_scan.launches
+    out["vco_scan_launches"] = vco_launches()
     if out["vco_scan_launches"] != 0:
         raise AssertionError("the quantised SLAM paths launched vco_scan")
     return out
@@ -1908,7 +1940,7 @@ def batched_episodes(space, vco):
     which differ only in the shape of their matrix products."""
     from sspslam_tpu_torch.experiments.common import slam_world, slam_simulator
     from sspslam_tpu_torch.parallel import BatchedEpisodes
-    vco.vco_scan.launches = 0
+    reset_vco_launches()
     sim, probe, build_s = slam_simulator(space, slam_world())
     pi = next(bp.index for bp in sim.model.probes if bp.obj is probe)
     log(f"SLAM for batched episodes: build {build_s:.1f} s")
@@ -1991,7 +2023,7 @@ def batched_episodes(space, vco):
             f"{BATCH_EPISODE_STEPS}: {flips[-1]}")
     out["episodes_vs_plain"] = flips
     del sim
-    out["vco_scan_launches"] = vco.vco_scan.launches
+    out["vco_scan_launches"] = vco_launches()
     if out["vco_scan_launches"] != 0:
         raise AssertionError("the batched episodes launched vco_scan")
     return out
@@ -2249,7 +2281,7 @@ def train_pathint_phase(vco):
     from sspslam_tpu_torch.nef import LIF, RectifiedLinear, SurrogateLIF
     from sspslam_tpu_torch.train import _tree_map
     torch.backends.cuda.matmul.allow_tf32 = False
-    vco.vco_scan.launches = 0
+    reset_vco_launches()
     out = {}
     t0 = time.perf_counter()
     sim, probe, pi, targ = pathint_training_sim("cuda")
@@ -2362,7 +2394,7 @@ def train_pathint_phase(vco):
             traces[1], traces[0], rtol=SURROGATE_RTOL, atol=1e-7)):
         raise AssertionError(f"SurrogateLIF forward differs from LIF: {diff}")
     out["surrogate_vs_lif_max_abs"] = diff
-    launches = vco.vco_scan.launches
+    launches = vco_launches()
     if launches != 0:
         raise AssertionError(f"training launched vco_scan {launches} times")
     out["vco_scan_launches"] = launches
@@ -2467,7 +2499,7 @@ def tune_in_place(vco):
     final states agree within REPLAY_TOL and differ from the base run's."""
     from sspslam_tpu_torch import train
     from sspslam_tpu_torch.experiments import tune_loop_closure as tlc
-    vco.vco_scan.launches = 0
+    reset_vco_launches()
     world = tlc.make_world(TUNE_CHECK_T, 0)
     base = dict(update_thres=0.2, shift_rate=0.2, voja_lr=1e-4, pes_lr=5e-3,
                 intercept=0.1)
@@ -2495,7 +2527,7 @@ def tune_in_place(vco):
     want = run(fresh, fprobe)
     del fresh
     err, moved = max_abs(got, want), max_abs(got, before)
-    launches = vco.vco_scan.launches
+    launches = vco_launches()
     log(f"tune_loop_closure, in place: base -> {cfg} written into a built "
         f"simulator's params, {world['n_steps']} steps: against a fresh "
         f"build max-abs {err:.3e} (tol {REPLAY_TOL}) over the probe trace "
@@ -2521,7 +2553,7 @@ def closed_loop_phase(space, vco):
     from sspslam_tpu_torch.experiments.common import slam_world, slam_simulator
     from sspslam_tpu_torch.nef import ClosedLoopSession
     world = slam_world()
-    vco.vco_scan.launches = 0
+    reset_vco_launches()
     sim, probe, build_s = slam_simulator(space, world)
     sim.preload_inputs(LOOP_STEPS)
     sim.run_steps(LOOP_STEPS, segment_steps=LOOP_STEPS)
@@ -2559,7 +2591,7 @@ def closed_loop_phase(space, vco):
         raise AssertionError(f"closed loop: max-abs {err}, graphs "
                              f"{sorted(sim._graphs)}")
     del sim, sess
-    launches = vco.vco_scan.launches
+    launches = vco_launches()
     if launches != 0:
         raise AssertionError(f"the closed loop launched vco_scan {launches} "
                              f"times")
@@ -2680,7 +2712,7 @@ def serving_phase(space, vco, children, slam):
                                                       slam_world)
     from sspslam_tpu_torch.nef import ServingModel, save_bundle
     world = slam_world()
-    vco.vco_scan.launches = 0
+    reset_vco_launches()
     out = {}
     tmp = Path(tempfile.mkdtemp(prefix="serving_"))
     sim, probe, build_s = slam_simulator(space, world)
@@ -2806,7 +2838,7 @@ def serving_phase(space, vco, children, slam):
         raise AssertionError(f"serving_probe printed {res}")
     out["serving_probe"] = dict({k: res[k] for k in keys}, seconds=seconds,
                                 vco_scan_launches=launches)
-    out["vco_scan_launches"] = vco.vco_scan.launches
+    out["vco_scan_launches"] = vco_launches()
     if out["vco_scan_launches"] != 0:
         raise AssertionError(f"serving launched vco_scan "
                              f"{out['vco_scan_launches']} times")
@@ -2824,7 +2856,7 @@ def interpreter_phase(space, vco, children, live_steps_per_s):
     from sspslam_tpu_torch.experiments.common import (slam_simulator,
                                                       slam_world)
     from sspslam_tpu_torch.nef.reference_backend import NumpyStepper
-    vco.vco_scan.launches = 0
+    reset_vco_launches()
     os.environ["SSPSLAM_CLEANUP_F32"] = "1"
     try:
         sim, probe, build_s = slam_simulator(space, slam_world())
@@ -2849,7 +2881,7 @@ def interpreter_phase(space, vco, children, live_steps_per_s):
     stdout, seconds, launches = children["run_slam_numpy"]
     out["run_slam_numpy"] = cli_errors("run_slam --backend numpy", stdout,
                                        seconds, launches)
-    out["vco_scan_launches"] = vco.vco_scan.launches
+    out["vco_scan_launches"] = vco_launches()
     if out["vco_scan_launches"] != 0:
         raise AssertionError("the interpreter phase launched vco_scan")
     return out, sim
@@ -2862,7 +2894,7 @@ def host_phase(sim, vco):
     replayed SLAM steps writes a Chrome trace naming the step's kernels."""
     from sspslam_tpu_torch import native
     from sspslam_tpu_torch.utils.profiling import trace_run
-    vco.vco_scan.launches = 0
+    reset_vco_launches()
     t0 = time.perf_counter()
     native.rd_sampling(4, 2)
     build_s = time.perf_counter() - t0
@@ -2924,7 +2956,7 @@ def host_phase(sim, vco):
     out = {"native_build_s": build_s, "native_vs_fallback_max_abs": errs,
            "trace_kernels_per_step": per_step,
            "trace_kernel_names": len(set(kernels)),
-           "vco_scan_launches": vco.vco_scan.launches}
+           "vco_scan_launches": vco_launches()}
     if out["vco_scan_launches"] != 0:
         raise AssertionError("the host phase launched vco_scan")
     return out
@@ -3027,7 +3059,7 @@ def recovery_schedule(vco):
     from sspslam_tpu_torch.experiments import kidnapped_robot as pk
     from sspslam_tpu_torch.nef import Simulator
     from sspslam_tpu_torch.nef.simulator import _flatten
-    vco.vco_scan.launches = 0
+    reset_vco_launches()
     args = pk.parse_args(["--T", "1", "--limit", "4", "--min-jump", "0.4"])
     world = pk.make_world(args)
     net, handles = pk.build_network(args, world)
@@ -3084,7 +3116,7 @@ def recovery_schedule(vco):
         raise AssertionError("the recovery window did not reach the "
                              f"graphs: {before}, {moved}")
     out = {"replay_vs_eager": err, "window_moved_adaptive": moved,
-           "build_s": build_s, "vco_scan_launches": vco.vco_scan.launches}
+           "build_s": build_s, "vco_scan_launches": vco_launches()}
     del sim
     torch.cuda.empty_cache()
     if out["vco_scan_launches"] != 0:
@@ -3205,7 +3237,7 @@ def maps_in_process(vco):
     from sspslam_tpu_torch.experiments.common import learned_base
     from sspslam_tpu_torch.nef.simulator import _flatten
     from sspslam_tpu_torch.parallel import BatchedEpisodes
-    vco.vco_scan.launches = 0
+    reset_vco_launches()
     args = pm.parse_args(["--T-explore", "2", "--T-test", "1"])
     world = pm.make_worlds(args)
     sim, _, _ = pm.build_program(args, world, world["paths"][0],
@@ -3276,7 +3308,7 @@ def maps_in_process(vco):
     out = {"merge_vs_formula": merge_err, "inject": inject_err,
            "exchange_vs_formula": exch_err,
            "after_exchange_replay_vs_eager": live_err,
-           "vco_scan_launches": vco.vco_scan.launches}
+           "vco_scan_launches": vco_launches()}
     del runner, built
     torch.cuda.empty_cache()
     if out["vco_scan_launches"] != 0:
@@ -3292,7 +3324,7 @@ def flagship_mflop(vco):
     from sspslam_tpu_torch.experiments.common import (slam_simulator,
                                                       slam_world)
     from sspslam_tpu_torch.utils.profiling import model_utilization_summary
-    vco.vco_scan.launches = 0
+    reset_vco_launches()
     sim, _, _ = slam_simulator(make_space(HexagonalSSPSpace),
                                slam_world(14.0, 10, SEED), device="cuda")
     mflop = round(sum(r["flops_per_step"]
@@ -3300,7 +3332,7 @@ def flagship_mflop(vco):
                   2)
     del sim
     torch.cuda.empty_cache()
-    return mflop, vco.vco_scan.launches
+    return mflop, vco_launches()
 
 
 def analyses_phase(children, flagship, work):
@@ -3418,10 +3450,10 @@ def sharded_scan(vco, fpi, space, unsharded, unsharded_ms, num_sms):
         run = make_sharded_vco_scan(fpi.params, S, CHUNK)
         k_shard = run.shards[0].bias.shape[1]
         state0 = run.initial_state()
-        vco.vco_scan.launches = 0
+        reset_vco_launches()
         _, y = run(state0, vel_c, corr_c)
         torch.cuda.synchronize()
-        launches = vco.vco_scan.launches
+        launches = vco_launches()
         if launches != S:
             raise AssertionError(f"sharded scan S={S}: {launches} kernel "
                                  f"launches for one chunk, not {S}")
@@ -3527,7 +3559,7 @@ def demos_phase(vco, ref):
     JAX's.  The VCO kernel launches 0 times.  Returns {demo: numbers}."""
     import importlib
     results = {}
-    vco.vco_scan.launches = 0
+    reset_vco_launches()
     for name, flags in DEMOS:
         mod = importlib.import_module(
             f"sspslam_tpu_torch.experiments.{name}")
@@ -3568,7 +3600,7 @@ def demos_phase(vco, ref):
         results[name] = out
         del built, sim, res
         torch.cuda.empty_cache()
-    results["vco_scan_launches"] = vco.vco_scan.launches
+    results["vco_scan_launches"] = vco_launches()
     if results["vco_scan_launches"] != 0:
         raise AssertionError("the demos launched the VCO kernel")
     return results
@@ -3609,14 +3641,14 @@ def bench_phase(vco, slam):
         return real_plain(*a)
     rows = []
     vco.vco_scan_reference = counted_plain
-    vco.vco_scan.launches = 0
+    reset_vco_launches()
     t0 = time.perf_counter()
     try:
         trace = profiled(lambda: rows.append(
             quiet_main(bench, ["--model", "pi-fast"])), 1, top=None)
     finally:
         vco.vco_scan_reference = real_plain
-    launches = vco.vco_scan.launches
+    launches = vco_launches()
     row = rows[0]
     traced = sum(calls for name, _, calls in trace["top"]
                  if "vco_scan_kernel" in name)
@@ -3637,11 +3669,11 @@ def bench_phase(vco, slam):
                       "plain_calls": len(plain_calls)}
 
     # --model slam, shortened
-    vco.vco_scan.launches = 0
+    reset_vco_launches()
     t0 = time.perf_counter()
     row = quiet_main(bench, BENCH_SLAM_ARGS)
     seconds = time.perf_counter() - t0
-    launches = vco.vco_scan.launches
+    launches = vco_launches()
     log(f"bench {' '.join(BENCH_SLAM_ARGS)}: {json.dumps(row)}")
     log(f"bench --model slam: {row['value']:.0f} steps/s, tracking "
         f"{row['tracking_cosine']:.4f}, device {row['device_us_per_step']} "
@@ -3661,12 +3693,12 @@ def bench_phase(vco, slam):
     out["slam"] = dict(row, seconds=seconds)
 
     # the roofline of the same model, beside the bench's device time
-    vco.vco_scan.launches = 0
+    reset_vco_launches()
     t0 = time.perf_counter()
     sim = bench.build(bench.parse_args([]))[0]
     roof = step_roofline.roofline(sim, row["device_us_per_step"])
     del sim
-    launches = vco.vco_scan.launches
+    launches = vco_launches()
     log(f"step_roofline: {json.dumps(roof)}; "
         f"{time.perf_counter() - t0:.1f} s")
     if not (roof["flops_per_step"] == slam["flops_per_step"]
@@ -3830,7 +3862,7 @@ def reference_slam(ref, vco):
     Launches the VCO kernel 0 times.  Returns the numbers."""
     from sspslam_tpu_torch import bench
     t0 = time.perf_counter()
-    vco.vco_scan.launches = 0
+    reset_vco_launches()
     out = {}
     for s in REFERENCE_SEEDS:
         p = f"slam_s{s}_"
@@ -3884,7 +3916,7 @@ def reference_slam(ref, vco):
         torch.cuda.empty_cache()
     mean_port = float(np.mean([r["tracking"] for r in out.values()]))
     mean_jax = float(np.mean([r["jax_tracking"] for r in out.values()]))
-    launches = vco.vco_scan.launches
+    launches = vco_launches()
     seconds = time.perf_counter() - t0
     log(f"reference, SLAM over seeds {list(REFERENCE_SEEDS)}: mean tracking "
         f"port {mean_port:.4f}, JAX {mean_jax:.4f}, |diff| "
@@ -3900,6 +3932,192 @@ def reference_slam(ref, vco):
             "jax_mean_tracking": mean_jax,
             "mean_tracking_diff": mean_port - mean_jax,
             "vco_scan_launches": launches, "seconds": seconds}
+
+
+# ---------------------------------------------------------------------------
+# 36. The program's spans on the fast path
+# ---------------------------------------------------------------------------
+
+EPISODE = 2 * CHUNK   # the benchmark cell's episode: two launches
+TRACE_EPISODES = 20   # episodes under the profiler (the cell's traced slice)
+ORDER_EPISODES = 3    # episodes in trace_run's Chrome trace
+COST_PAIRS = 8        # tracing off and on, in turns
+COST_EPISODES = 20    # episodes a side of a pair
+ACCOUNT_TOL = 0.03    # pi.run + pi.initial_state against the episode
+WAIT_RANGE = (1.8, 2.05)  # pi.wait over the kernel's mean record time
+
+
+def episode_inputs(space, d):
+    """One episode's velocity and correction tables, as the benchmark's
+    entry uploads them (the clamp rows over the first 50 ms)."""
+    corr = np.zeros((EPISODE, d), np.float32)
+    corr[:49] = space.encode(np.array([[0.15, -0.1]]))
+    return traffic()[:EPISODE], corr
+
+
+def episodes(fpi, vel, corr, n):
+    """``n`` episodes as the benchmark's entry runs them (the bank from
+    rest, the whole trace to the host); each one's ns on the host clock."""
+    times = []
+    for _ in range(n):
+        t0 = time.perf_counter_ns()
+        fpi.state = fpi.initial_state()
+        fpi.run(vel, corr)
+        times.append(time.perf_counter_ns() - t0)
+    return times
+
+
+def traced_split(fpi, vel, corr):
+    """TRACE_EPISODES episodes under ``torch.profiler``: the mean of each
+    span an episode and the kernel's records, checked: two
+    ``vco_scan.call`` a ``pi.run``, ``pi.run`` + ``pi.initial_state``
+    within ACCOUNT_TOL of the episode, ``pi.wait`` within WAIT_RANGE of
+    the kernel's mean record, no device record named after a span."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from sspslam_tpu_torch.experiments.device_time_probe import busy_ns
+    from sspslam_tpu_torch.utils import profiling
+    profiling.reset()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        w0 = time.time_ns()
+        ep = episodes(fpi, vel, corr, TRACE_EPISODES)
+        w1 = time.time_ns()
+    recs = profiling.spans()
+    dev = [(e.name(), e.start_ns(), e.end_ns())
+           for e in prof.profiler.kineto_results.events()
+           if e.device_type() == DeviceType.CUDA
+           and not getattr(e, "is_hidden_event", lambda: False)()]
+    kernel = [b - a for n, a, b in dev if "vco_scan" in n]
+    runs = [i for i, r in enumerate(recs) if r.name == "pi.run"]
+    calls = [sum(1 for r in recs if r.parent == i
+                 and r.name == "vco_scan.call") for i in runs]
+
+    def per_episode(name):
+        return sum(r.end_ns - r.start_ns for r in recs
+                   if r.name == name) / TRACE_EPISODES / 1e6
+    out = {"episodes": TRACE_EPISODES,
+           "episode_ms": float(np.mean(ep)) / 1e6,
+           "kernel_ms": float(np.mean(kernel)) / 1e6,
+           "kernels_per_episode": len(kernel) / TRACE_EPISODES,
+           **{f"{n}_ms": per_episode(n) for n in (
+               "pi.initial_state", "pi.run", "pi.upload", "vco_scan.call",
+               "pi.wait", "pi.download")},
+           "vco_scan_call_us": 1e3 * per_episode("vco_scan.call")
+           * TRACE_EPISODES / max(1, sum(calls)),
+           "pi.run_self_ms": sum(profiling.self_ns(recs, i)
+                                 for i in runs) / TRACE_EPISODES / 1e6,
+           "device_idle_share": 1 - busy_ns(
+               [(a, b) for _, a, b in dev], w0, w1) / (w1 - w0)}
+    out["outside_pi.run_ms"] = (out["episode_ms"] - out["pi.run_ms"]
+                                - out["pi.initial_state_ms"])
+    out["account"] = (out["pi.run_ms"] + out["pi.initial_state_ms"]) \
+        / out["episode_ms"]
+    out["wait_over_kernel"] = out["pi.wait_ms"] / out["kernel_ms"]
+    log("traced split of an episode (ms): " + ", ".join(
+        f"{k} {v:.4f}" for k, v in out.items()))
+    named = sorted({n for n, _, _ in dev
+                    if n.startswith("pi.") or n == "vco_scan.call"})
+    if named:
+        raise AssertionError(f"device records named after spans: {named}")
+    if calls != [2] * TRACE_EPISODES:
+        raise AssertionError(f"vco_scan.call spans a pi.run: {calls}")
+    if abs(out["account"] - 1) > ACCOUNT_TOL:
+        raise AssertionError(f"pi.run + pi.initial_state cover "
+                             f"{out['account']:.4f} of the episode")
+    if not WAIT_RANGE[0] <= out["wait_over_kernel"] <= WAIT_RANGE[1]:
+        raise AssertionError(f"pi.wait is {out['wait_over_kernel']:.3f} x "
+                             f"the kernel's record")
+    return out
+
+
+def chrome_trace_order(fpi, vel, corr):
+    """ORDER_EPISODES episodes in ``trace_run``'s Chrome trace: each VCO
+    kernel record starts after its ``vco_scan.call`` span starts, and each
+    episode's second kernel ends before its ``pi.wait`` span ends.
+    Returns the margins (us) and the span clock's offset (ns)."""
+    from sspslam_tpu_torch.utils import profiling
+    profiling.reset()
+    tmp = Path(tempfile.mkdtemp(prefix="spans_"))
+    with profiling.trace_run(str(tmp)):
+        episodes(fpi, vel, corr, ORDER_EPISODES)
+    (path,) = tmp.glob("*.pt.trace.json")
+    events = json.loads(path.read_text())["traceEvents"]
+    shutil.rmtree(tmp, ignore_errors=True)
+    kernels = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
+                     if e.get("cat") == "kernel" and "vco_scan" in e["name"])
+    mine = [e for e in events
+            if e.get("pid") == profiling.SPAN_ROW and e.get("ph") == "X"]
+    calls = sorted(e["ts"] for e in mine if e["name"] == "vco_scan.call")
+    waits = sorted(e["ts"] + e["dur"] for e in mine
+                   if e["name"] == "pi.wait")
+    if not len(kernels) == len(calls) == 2 * len(waits) \
+            == 2 * ORDER_EPISODES:
+        raise AssertionError(f"Chrome trace: {len(kernels)} kernels, "
+                             f"{len(calls)} calls, {len(waits)} waits")
+    out = {"launch_after_call_us": [k[0] - c
+                                    for k, c in zip(kernels, calls)],
+           "wait_after_kernel_us": [w - kernels[2 * j + 1][1]
+                                    for j, w in enumerate(waits)],
+           "offset_ns": profiling.profiler_clock_offset_ns()}
+    log(f"Chrome trace: kernel start - vco_scan.call start (us) "
+        f"{out['launch_after_call_us']}; pi.wait end - second kernel end "
+        f"(us) {out['wait_after_kernel_us']}; perf_counter_ns + "
+        f"{out['offset_ns']} = the profiler's clock")
+    if min(out["launch_after_call_us"]) < 0 \
+            or min(out["wait_after_kernel_us"]) < 0:
+        raise AssertionError("the program's spans and the device records "
+                             "are not on one clock")
+    return out
+
+
+def tracing_cost(fpi, vel, corr):
+    """COST_PAIRS pairs of COST_EPISODES episodes with tracing off and on
+    (``utils.profiling.tracing()``, no profiler), in turns: ms an episode
+    on each side and their differences, and the spans' ms an episode with
+    no profiler slowing the host (the on sides' spans)."""
+    from sspslam_tpu_torch.utils import profiling
+    profiling.reset()
+    off, on = [], []
+    with ClockSampler() as clocks:
+        for p in range(COST_PAIRS):
+            for traced in ((False, True) if p % 2 == 0 else (True, False)):
+                with (profiling.tracing() if traced
+                      else contextlib.nullcontext()):
+                    t = episodes(fpi, vel, corr, COST_EPISODES)
+                (on if traced else off).append(float(np.mean(t)) / 1e6)
+    recs = profiling.spans()
+    profiling.reset()
+    diffs = [b - a for a, b in zip(off, on)]
+    n = COST_PAIRS * COST_EPISODES
+    out = {"pairs": COST_PAIRS, "episodes": COST_EPISODES,
+           "off_ms": off, "on_ms": on, "on_minus_off_ms": diffs,
+           "median_off_ms": float(np.median(off)),
+           "median_on_ms": float(np.median(on)),
+           "median_diff_ms": float(np.median(diffs)),
+           "untraced_split_ms": {name: sum(
+               r.end_ns - r.start_ns for r in recs if r.name == name)
+               / n / 1e6 for name in dict.fromkeys(r.name for r in recs)}}
+    out["median_diff_share"] = out["median_diff_ms"] / out["median_off_ms"]
+    log(f"tracing cost: ms an episode off {off}, on {on}; median "
+        f"difference {out['median_diff_ms']:.4f} ms "
+        f"({out['median_diff_share'] * 100:.3f} %); {clocks.summary()}; "
+        f"spans with no profiler, ms an episode: "
+        f"{out['untraced_split_ms']}")
+    return out
+
+
+def tracing_phase(fpi, space):
+    """Phase 36: the program's spans on the benchmark cell's episode (two
+    CHUNK-step launches, the velocity and correction tables up, the trace
+    down) at the main path's width: the traced split, the Chrome trace's
+    order, the cost of tracing."""
+    vel, corr = episode_inputs(space, fpi.d)
+    episodes(fpi, vel, corr, 2)  # warm-up
+    return {"split": traced_split(fpi, vel, corr),
+            "order": chrome_trace_order(fpi, vel, corr),
+            "cost": tracing_cost(fpi, vel, corr)}
 
 
 def time_checkout(root: str) -> None:
@@ -3932,6 +4150,8 @@ def main() -> int:
     ap.add_argument("--time", metavar="ROOT",
                     help="only time the VCO-bank kernel of the checkout at "
                          "ROOT (see the module docstring)")
+    ap.add_argument("--tracing", action="store_true",
+                    help="only run phase 36, the program's spans")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3941,6 +4161,16 @@ def main() -> int:
         return 0
     from sspslam_tpu_torch import FastPathIntegrator, HexagonalSSPSpace
     from sspslam_tpu_torch.ops import vco_scan as vco
+    if args.tracing:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        space = make_space(HexagonalSSPSpace)
+        fpi = FastPathIntegrator(space, N_NEURONS, seed=SEED,
+                                 chunk_steps=CHUNK, device="cuda")
+        log(f"torch {torch.__version__}, {nvidia_smi()}")
+        print(json.dumps({"tracing": tracing_phase(fpi, space)}),
+              flush=True)
+        print(nvidia_smi(), flush=True)
+        return 0
 
     # 1. device
     smi = nvidia_smi()
@@ -3995,6 +4225,9 @@ def main() -> int:
     # 31. the sharded scan, on the card while it is quiet
     sharded = sharded_scan(vco, fpi, space, y_chunk[chosen],
                            float(np.mean(full[chosen])), num_sms)
+
+    # 36. the program's spans on the fast path
+    tracing = tracing_phase(fpi, space)
 
     # 8-10. the generic engine
     simulator = simulator_path(space, vco, trace)
@@ -4066,6 +4299,7 @@ def main() -> int:
     print(json.dumps({"bench": bench}), flush=True)
     print(json.dumps({"reference": reference}), flush=True)
     print(json.dumps({"mesh": mesh}), flush=True)
+    print(json.dumps({"tracing": tracing}), flush=True)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"kernels": [{
         "name": "vco_scan", "route": "cuda",

@@ -47,8 +47,8 @@ import numpy as np
 import torch
 
 from .experiments.common import slam_simulator, slam_world
-from .ops import vco_scan
 from .sspspace import HexagonalSSPSpace
+from .utils import profiling
 from .utils.profiling import model_utilization_summary
 
 #: The MFU denominator: the H100 SXM's float32 peak outside the tensor
@@ -149,7 +149,7 @@ def bench_pi(args, fast: bool):
         from .models import FastPathIntegrator
         fpi = FastPathIntegrator(space, args.pi_n_neurons, seed=args.seed,
                                  chunk_steps=seg, device=device)
-        launches = vco_scan.vco_scan.launches
+        launches = profiling.counter("vco_scan.launches")
         t0 = time.perf_counter()
         warm = fpi.run(vels[:seg])
         log(f"warm-up chunk: {time.perf_counter() - t0:.1f}s")
@@ -158,7 +158,8 @@ def bench_pi(args, fast: bool):
         outs = fpi.run(vels[seg:], transfer=False)
         sps = T / (time.perf_counter() - t0)
         trace = np.concatenate([warm, torch.cat(outs).cpu().numpy()])
-        extra["vco_scan_launches"] = vco_scan.vco_scan.launches - launches
+        extra["vco_scan_launches"] = (profiling.counter("vco_scan.launches")
+                                      - launches)
         label = "PathIntegration fast path (VCO-bank kernel)"
     else:
         from .models import PathIntegration
@@ -331,7 +332,7 @@ def bench_slam(args, sim, probe, space, path, spot):
     sim.sync()
     log(f"capture+warmup ({seg} steps): {time.perf_counter() - t0:.1f}s")
 
-    launches = vco_scan.vco_scan.launches
+    launches = profiling.counter("vco_scan.launches")
     rates = []
     for rep in range(args.reps):
         t0 = time.perf_counter()
@@ -404,7 +405,8 @@ def bench_slam(args, sim, probe, space, path, spot):
         "n_reps": args.reps,
         "flops_per_step": flops_step,
         "mfu": flops_step * steps_per_s / PEAK_F32_FLOPS,
-        "vco_scan_launches": vco_scan.vco_scan.launches - launches,
+        "vco_scan_launches": (profiling.counter("vco_scan.launches")
+                              - launches),
         # cos(PI output, encode(true position)) over the last quarter of
         # the world, against the gate
         "tracking_cosine": tracking_cos,

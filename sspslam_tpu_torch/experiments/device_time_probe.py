@@ -7,7 +7,8 @@ model (``sspslam_tpu_torch.bench.build``), runs one warm-up segment (the
 CUDA graphs' capture included), traces ``--steps`` replayed steps with
 ``torch.profiler`` (CPU and CUDA activities) and reports the CUDA kernels'
 self time per step, the kernels per step, the device's busy share of the
-traced window and the costliest kernels: the number to compare
+traced window (the union of its records, so overlapping records count
+once) and the costliest kernels: the number to compare
 step-level changes by.  ``torch.profiler`` takes the place of XLA's
 per-op accounting.
 
@@ -35,28 +36,51 @@ from .. import bench
 STEPS, SEGMENT = 2000, 1000
 
 
+def merge(intervals):
+    """The union of (start, end) intervals, as sorted disjoint [start,
+    end] pairs: overlapping device records (a copy beside a kernel, two
+    streams) count once."""
+    out = []
+    for a, b in sorted(intervals):
+        if out and a <= out[-1][1]:
+            if b > out[-1][1]:
+                out[-1][1] = b
+        else:
+            out.append([a, b])
+    return out
+
+
+def busy_ns(intervals, lo: int, hi: int) -> int:
+    """Nanoseconds of [lo, hi] that some interval covers."""
+    return sum(b - a for a, b in merge(
+        (max(a, lo), min(b, hi)) for a, b in intervals if b > lo and a < hi))
+
+
 def profile_steps(run, steps: int, top: Optional[int] = 6) -> dict:
     """Trace ``run()``, which advances ``steps`` steps and waits for the
     device, with ``torch.profiler``.  Returns, per step: the CUDA kernels'
     self time (``device_us_per_step``), the kernels, the device records
-    (kernels, copies and fills) and their busy time; the busy share of the
-    traced wall window; and the ``top`` kernels by time (None: every
-    kernel), as (name, us per step, calls per step).  Raises when the
-    trace holds no CUDA kernel."""
+    (kernels, copies and fills) and their busy time (the union of their
+    intervals inside the traced wall window); the busy share of that
+    window; and the ``top`` kernels by time (None: every kernel), as
+    (name, us per step, calls per step).  Raises when the trace holds no
+    CUDA kernel."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
+        # the profiler's own clock (the Unix epoch), which stamps its
+        # records
+        t0 = time.time_ns()
         run()
-        wall_us = (time.perf_counter() - t0) * 1e6
+        t1 = time.time_ns()
     # the raw records: building the profiler's Python event objects for a
     # few hundred thousand kernels takes longer than the traced run
-    dev = [(e.name(), e.duration_ns() / 1e3)
+    dev = [(e.name(), e.start_ns(), e.end_ns())
            for e in prof.profiler.kineto_results.events()
            if e.device_type() == DeviceType.CUDA
            and not getattr(e, "is_hidden_event", lambda: False)()]
-    kernels = [(n, us) for n, us in dev
+    kernels = [(n, (b - a) / 1e3) for n, a, b in dev
                if not n.startswith(("Memcpy", "Memset"))]
     if not kernels:
         raise RuntimeError("the profiler recorded no CUDA kernel")
@@ -65,13 +89,13 @@ def profile_steps(run, steps: int, top: Optional[int] = 6) -> dict:
         t, calls = by_name.get(name, (0.0, 0))
         by_name[name] = (t + us, calls + 1)
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]
-    busy_us = sum(us for _, us in dev)
+    busy_us = busy_ns([(a, b) for _, a, b in dev], t0, t1) / 1e3
     return {"steps": steps,
             "device_us_per_step": sum(us for _, us in kernels) / steps,
             "kernels_per_step": len(kernels) / steps,
             "events_per_step": len(dev) / steps,
             "busy_us_per_step": busy_us / steps,
-            "busy_share": busy_us / wall_us,
+            "busy_share": busy_us / ((t1 - t0) / 1e3),
             "top": [(name, t / steps, calls / steps)
                     for name, (t, calls) in ranked]}
 

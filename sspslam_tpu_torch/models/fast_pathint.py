@@ -22,6 +22,7 @@ from ..ops import vsa
 from ..ops.neurons import LIF
 from ..ops.vco_scan import (VCOParams, VCOState, initial_vco_state,
                             vco_scan)
+from ..utils import profiling
 from .pathintegration import PathIntegration
 
 __all__ = ["FastPathIntegrator"]
@@ -97,7 +98,8 @@ class FastPathIntegrator:
     def initial_state(self) -> VCOState:
         """Zero state; ``fout`` holds the filtered (1, 2k) decode rows (the
         projection to SSP space happens after the kernel)."""
-        return initial_vco_state(self.n, self.k, device=self.device)
+        with profiling.span("pi.initial_state"):
+            return initial_vco_state(self.n, self.k, device=self.device)
 
     def run(self, velocities: np.ndarray,
             corrections: Optional[np.ndarray] = None,
@@ -106,30 +108,48 @@ class FastPathIntegrator:
         corrections, e.g. the initial-state clamp); returns the (T, d)
         filtered SSP estimate trace as a NumPy array (``transfer=False``:
         the list of per-chunk traces left on the device, after waiting for
-        the device to finish)."""
-        # one upload of the whole input table: a synchronous per-chunk copy
-        # would make every launch wait for the previous chunk to finish
-        vel = torch.as_tensor(np.asarray(velocities, np.float32),
-                              device=self.device)
-        T = vel.shape[0]
-        if corrections is None:
-            corr = torch.zeros((min(self.chunk_steps, T), self.d),
-                               dtype=torch.float32, device=self.device)
-        else:
-            corr = torch.as_tensor(np.asarray(corrections, np.float32),
-                                   device=self.device)
-        outs = []
-        done = 0
-        while done < T:
-            c = min(self.chunk_steps, T - done)
-            cc = corr[:c] if corrections is None else corr[done:done + c]
-            self.state, out = vco_scan(self.params, self.state,
-                                       vel[done:done + c], cc)
-            # chunk traces stay on the device; one device->host copy below
-            outs.append(out)
-            done += c
-        if not transfer:
-            if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
-            return outs
-        return torch.cat(outs, dim=0).cpu().numpy()
+        the device to finish).
+
+        Spans (``utils.profiling``, while tracing): ``pi.run`` around the
+        whole; inside it ``pi.upload``, a ``vco_scan.call`` a chunk,
+        ``pi.wait`` (the host blocked until the device has finished; while
+        tracing a transferring run waits here, not inside the copy) and
+        ``pi.download``."""
+        with profiling.span("pi.run"):
+            with profiling.span("pi.upload"):
+                # one upload of the whole input table: a synchronous
+                # per-chunk copy would make every launch wait for the
+                # previous chunk to finish
+                vel = torch.as_tensor(np.asarray(velocities, np.float32),
+                                      device=self.device)
+                T = vel.shape[0]
+                if corrections is None:
+                    corr = torch.zeros((min(self.chunk_steps, T), self.d),
+                                       dtype=torch.float32,
+                                       device=self.device)
+                else:
+                    corr = torch.as_tensor(
+                        np.asarray(corrections, np.float32),
+                        device=self.device)
+            outs = []
+            done = 0
+            while done < T:
+                c = min(self.chunk_steps, T - done)
+                cc = corr[:c] if corrections is None \
+                    else corr[done:done + c]
+                self.state, out = vco_scan(self.params, self.state,
+                                           vel[done:done + c], cc)
+                # chunk traces stay on the device; one device->host copy
+                # below
+                outs.append(out)
+                done += c
+            with profiling.span("pi.wait"):
+                if self.device.type == "cuda":
+                    if not transfer:
+                        torch.cuda.synchronize(self.device)
+                    elif profiling.tracing_on():
+                        torch.cuda.current_stream(self.device).synchronize()
+            if not transfer:
+                return outs
+            with profiling.span("pi.download"):
+                return torch.cat(outs, dim=0).cpu().numpy()

@@ -36,6 +36,7 @@ from typing import Mapping, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from ..utils import profiling
 from .neurons import LIF
 
 __all__ = ["VCOParams", "VCOState", "initial_vco_state", "output_projection",
@@ -291,7 +292,7 @@ def _vco_scan_cuda(p: VCOParams, state: VCOState, vel: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"vco_scan: kernel launch failed with CUDA error "
                            f"{err}: {lib.vco_scan_error_string(err).decode()}")
-    vco_scan.launches += 1
+    profiling.count("vco_scan.launches")
     return new, rows @ output_projection(p)
 
 
@@ -299,16 +300,16 @@ def vco_scan(params: VCOParams, state: VCOState, vel_chunk: torch.Tensor,
              corr_chunk: torch.Tensor) -> Tuple[VCOState, torch.Tensor]:
     """T dt-steps of the VCO bank: vel_chunk (T, N), corr_chunk (T, d) ->
     (new_state, filtered SSP trace (T, d)).  CUDA tensors launch the
-    kernel (``vco_scan.launches`` counts the launches); CPU tensors take
-    :func:`vco_scan_reference`."""
-    if vel_chunk.device.type == "cuda":
-        return _vco_scan_cuda(params, state, vel_chunk, corr_chunk)
-    if vel_chunk.device.type == "cpu":
-        return vco_scan_reference(params, state, vel_chunk, corr_chunk)
-    raise ValueError(f"vco_scan: no path for device {vel_chunk.device}")
-
-
-vco_scan.launches = 0
+    kernel (the counter ``vco_scan.launches`` of ``utils.profiling``
+    counts the launches); CPU tensors take :func:`vco_scan_reference`.
+    Each call is the span ``vco_scan.call`` while tracing: on the card the
+    host's part only (checks, the launch, the projection's enqueue)."""
+    with profiling.span("vco_scan.call"):
+        if vel_chunk.device.type == "cuda":
+            return _vco_scan_cuda(params, state, vel_chunk, corr_chunk)
+        if vel_chunk.device.type == "cpu":
+            return vco_scan_reference(params, state, vel_chunk, corr_chunk)
+        raise ValueError(f"vco_scan: no path for device {vel_chunk.device}")
 
 
 # ---------------------------------------------------------------------------

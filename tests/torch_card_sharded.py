@@ -53,6 +53,7 @@ from sspslam_tpu_torch import bench  # noqa: E402
 from sspslam_tpu_torch.experiments.common import (  # noqa: E402
     slam_simulator, slam_world)
 from sspslam_tpu_torch.ops import vco_scan  # noqa: E402
+from sspslam_tpu_torch.utils import profiling  # noqa: E402
 
 TRACKING_TOL = 0.016
 SERVED_TOL = 1e-6
@@ -92,7 +93,7 @@ def rank_main(rank, world, device, steps, seg, bundle, shape=None):
     torch.backends.cuda.matmul.allow_tf32 = False
     mesh = (make_mesh(world) if shape is None
             else make_mesh(world, ("data", "model"), shape))
-    launches0 = vco_scan.vco_scan.launches
+    launches0 = profiling.counter("vco_scan.launches")
     t0 = time.perf_counter()
     sim, probe, space, _ = build(device, mesh)
     build_s = time.perf_counter() - t0
@@ -123,7 +124,8 @@ def rank_main(rank, world, device, steps, seg, bundle, shape=None):
         served_ms.append(1e3 * (time.perf_counter() - t0))
     served = np.concatenate(served)
     mm = m.meta["mesh"]
-    out.update(slam_vco_launches=vco_scan.vco_scan.launches - launches0,
+    out.update(slam_vco_launches=(profiling.counter("vco_scan.launches")
+                                  - launches0),
                served_max_abs=float(np.abs(served - trace).max()),
                served_ms=served_ms, programs=len(mm["programs"]),
                program_all_reduces=mm["all_reduces_per_step"],
@@ -143,10 +145,10 @@ def rank_main(rank, world, device, steps, seg, bundle, shape=None):
     state, ys, per_chunk = run.initial_state(), [], []
     for c in range(VCO_CHUNKS):
         sl = slice(c * chip_smoke.CHUNK, (c + 1) * chip_smoke.CHUNK)
-        before = vco_scan.vco_scan.launches
+        before = profiling.counter("vco_scan.launches")
         state, y = run(state, vel[sl], corr[sl])
         torch.cuda.synchronize(device)
-        per_chunk.append(vco_scan.vco_scan.launches - before)
+        per_chunk.append(profiling.counter("vco_scan.launches") - before)
         ys.append(y.cpu().numpy())
     out["vco_trace"] = np.concatenate(ys)
     out["vco_launches_per_chunk"] = per_chunk
@@ -329,7 +331,8 @@ def main(argv=None) -> int:
         result["tp_scaling"] = tp_scaling.main(
             ["--mesh-sizes", ",".join(map(str, worlds))])
     print(json.dumps({"mesh": result}), flush=True)
-    print(f"vco_scan launches: {vco_scan.vco_scan.launches}", flush=True)
+    print(f"vco_scan launches: {profiling.counter('vco_scan.launches')}",
+          flush=True)
     return 0
 
 
