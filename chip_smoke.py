@@ -17,7 +17,9 @@ result line):
    its plain PyTorch version on the same params and inputs: 40 steps to
    max-abs <= 2e-4, then a 2,000-step chunk and the main path's first
    10,000-step chunk to median |diff| <= 2e-3 (single spike flips grow
-   with the step count, so the long chunks bound the median); then 40
+   with the step count, so the long chunks bound the median), and a
+   second launch of that chunk from the same state to the first, bitwise
+   (rows and state: the kernel sums in a fixed order); then 40
    steps at 48, 300 and 2,000 neurons per oscillator, which run the
    kernel's other neurons-per-thread variants.  The plain version's run
    of the main path's first chunk also counts its spikes, which set the
@@ -30,7 +32,8 @@ result line):
    first k oscillators of those builds for k on either side of the edges
    that ``_cluster_size`` and the waves of resident clusters set, each
    first held to the plain version over 40 steps; the card's clocks and
-   power are sampled over the sweep;
+   power are sampled over the sweep, and the per-step times at n = 800
+   and n = 32 are printed side by side for each C;
 5. main path: ``FastPathIntegrator`` driven with ``bench.py --model
    pi-fast``'s traffic (one 10,000-step warm-up chunk, then 50,000 timed
    steps) at the C the wrapper picks, with the card's clocks and power
@@ -394,7 +397,7 @@ SWEEP_REPEATS = 3
 TIME_REPEATS = 5
 # The sweep's widths: (name, domain dim, ssp_dim, neurons per oscillator,
 # oscillators).  None takes the build's own k; a number takes the first k
-# oscillators of the build: on either side of k = 62, where the wrapper's
+# oscillators of the build: on either side of k = 92, where the wrapper's
 # choice of C changes on 132 SMs, and of where a wave of resident clusters
 # ends; and one point at which that choice is not the faster (PERF.md).
 SWEEP_WIDTHS = (
@@ -402,6 +405,8 @@ SWEEP_WIDTHS = (
     ("floor", 2, SSP_DIM, FLOOR_NEURONS, None),
     ("3-D ssp_dim 201, first 62", 3, 201, N_NEURONS, 62),
     ("3-D ssp_dim 201, first 63", 3, 201, N_NEURONS, 63),
+    ("3-D ssp_dim 201, first 92", 3, 201, N_NEURONS, 92),
+    ("3-D ssp_dim 201, first 93", 3, 201, N_NEURONS, 93),
     ("3-D ssp_dim 201, n = 400, first 66", 3, 201, 400, 66),
     ("3-D ssp_dim 201", 3, 201, N_NEURONS, None),
     ("3-D ssp_dim 801", 3, 801, N_NEURONS, None),
@@ -637,10 +642,19 @@ def check_kernel(fpi, space, vco):
                                     cluster=C)
         check_long(space, y_k, y_p_long,
                    f"C={C}: kernel vs plain, {LONG} steps")
-        _, y_chunk[C] = vco._vco_scan_cuda(params, state0, vel_c, corr_c,
-                                           cluster=C)
+        s_a, y_chunk[C] = vco._vco_scan_cuda(params, state0, vel_c, corr_c,
+                                             cluster=C)
         check_long(space, y_chunk[C], y_p_chunk,
                    f"C={C}: kernel vs plain, {CHUNK} steps")
+        # the design's promise: no atomics, every sum in a fixed order
+        s_b, y_b = vco._vco_scan_cuda(params, state0, vel_c, corr_c,
+                                      cluster=C)
+        if not (torch.equal(y_b, y_chunk[C])
+                and all(torch.equal(a, b) for a, b in zip(s_a, s_b))):
+            raise AssertionError(f"C={C}: two launches from the same state "
+                                 f"differ")
+        log(f"C={C}: two launches of the {CHUNK}-step chunk from the same "
+            f"state: rows and state bitwise identical")
     return worst, plain_ms, spikes, y_chunk, y_p_chunk
 
 
@@ -732,6 +746,13 @@ def cluster_sweep(vco, fpi, space_cls, fpi_cls, num_sms):
                 f"{SHORT} steps at every C; fastest C {fastest}, the "
                 f"wrapper picks {vco._cluster_size(n, k, num_sms)}")
     log(f"sweep window: {clocks.summary()}")
+    for C in vco.CLUSTER_SIZES:
+        us = {name: np.mean(results[name][C]) / CHUNK * 1e3
+              for name in ("full width", "floor")}
+        log(f"per-step time at C={C}: n={N_NEURONS} "
+            f"{us['full width']:.4f} us, n={FLOOR_NEURONS} (the floor) "
+            f"{us['floor']:.4f} us: {us['full width'] - us['floor']:.4f} us "
+            f"a step grows with the neurons")
     return results
 
 

@@ -25,7 +25,13 @@
 // within each oscillator: the five population decodes must be complete
 // before the next step's currents.  On one SM per oscillator the chain is
 // the LIF instructions of all n neurons, then a block reduction, and only
-// k of the card's 132 SMs work.
+// k of the card's 132 SMs work.  Spread over a cluster, the chain is the
+// exchange's latency (the per-step floor: 0.704 us a step at n = 32 on an
+// H100, PERF.md) plus what grows with the warps an SM holds.  At ssp_dim 97
+// (k = 49, C = 4) 196 CTAs share 132 SMs, so 64 or more SMs hold two CTAs
+// (14 warps), and the shuffle pipe, one warp shuffle a clock per SM, is
+// the part of that growth the reduction decides: it issues 16 shuffles a
+// warp and step, 224 on such an SM.
 //
 // Design: one oscillator per thread-block cluster of C CTAs (C = 1 or 4;
 // one template).  The input projections are hoisted out of the time loop,
@@ -40,30 +46,43 @@
 //   2. loads its neurons' voltage, refractory time and 9 parameters into
 //      registers, NPT neurons per thread;
 //   3. runs the time loop.  The chain part of a step is the currents, the
-//      new voltages, the spikes and the five decode sums: a warp butterfly,
-//      then lanes 0..C-1 of every warp send the warp's five sums with
-//      st.async through distributed shared memory into slot (rank, warp) of
-//      every CTA of the cluster.  Each store completes on the receiving
-//      CTA's mbarrier for that step (complete_tx), and thread 0 of each CTA
-//      arrives on it once, announcing the C x nwarps x 20 bytes to come.
-//      The sender neither waits nor fences: the same kernel with a split
-//      cluster barrier (barrier.cluster.arrive.release / wait.acquire) in
-//      place of the mbarrier measured 0.28-0.36 us slower per step at
-//      n = 32 (PERF.md), presumably because a release waits for the step's
-//      prefetch loads and output stores still in flight.  While the
-//      exchange lands, each thread finishes its neurons' LIF update off the
-//      chain (reset, refractory time, the next step's decay factor: both
-//      divisions, expm1f and log1pf).  After the mbarrier's phase completes
-//      (acquire), lane l of every warp of every CTA adds slots l, l+32, ...
-//      and a warp butterfly sums the lanes: the same data in the same lanes,
-//      so every thread of the cluster holds bit-identical sums and keeps an
-//      identical copy of the filter state; no atomics, so a run is
-//      deterministic.  Slots and mbarriers are double-buffered by step
-//      parity.  A CTA sends step t+2's sums only after its step t+1 phase
-//      completed, which needs every warp's step t+1 sums, computed from
-//      that warp's step t reads: so no slot is overwritten before it is read.
-//   Rank 0, thread 0 writes out[t, j], out[t, k+j] and the final filters;
-//   every rank writes back its own neurons' voltage and refractory time.
+//      new voltages, the spikes and the five decode sums.  A warp
+//      reduce-scatters its five sums (warp_scatter5: at each xor level a
+//      lane keeps some of its values and sends the rest, 8 shuffles), so
+//      the four lanes of group g = lane / 4 end with the warp's total of
+//      value_of(lane).  Lane 4g + r of the first group holding each value
+//      sends it, for r < C, with st.async through distributed shared memory
+//      into slot (rank, warp) of cluster CTA r: 5 floats a warp to every
+//      CTA.  Each store completes on the receiving CTA's mbarrier for that
+//      step (complete_tx), and thread 0 of each CTA arrives on it once,
+//      announcing the C x nwarps x 20 bytes to come.  The sender neither
+//      waits nor fences: the same kernel with a split cluster barrier
+//      (barrier.cluster.arrive.release / wait.acquire) in place of the
+//      mbarrier measured 0.28-0.36 us slower per step at n = 32 (PERF.md),
+//      presumably because a release waits for the step's prefetch loads and
+//      output stores still in flight.  While the exchange lands, each
+//      thread finishes its neurons' LIF update off the chain (reset,
+//      refractory time, the next step's decay factor: both divisions,
+//      expm1f and log1pf).  After the mbarrier's phase completes (acquire),
+//      lane l of every warp adds values 0-2 (l < 16) or 3-4 (l >= 16) of
+//      slots l % 16, l % 16 + 16, ...; the same reduce-scatter's last four
+//      levels (5 shuffles) leave each value's total in fixed lanes, and 3
+//      shuffles hand the recurrent totals to every lane; the two output
+//      totals stay in lanes 16 and 24, which keep the output filters.  The
+//      same data in the same lanes in the same order: every thread of the
+//      cluster holds bit-identical sums and keeps an identical copy of the
+//      filter state; no atomics, so a run is deterministic.  Both stages
+//      add the pairs of a butterfly's tree, so with at most 32 slots the
+//      sums equal two butterflies' bit for bit.  Every warp sums for
+//      itself: handing the totals from one warp through shared memory and
+//      a CTA barrier measured slower at k = 49 (PERF.md).
+//      Slots and mbarriers are double-buffered by step parity.  A CTA sends
+//      step t+2's sums only after its step t+1 phase completed, which needs
+//      every warp's step t+1 sums, computed from that warp's step t reads:
+//      so no slot is overwritten before it is read.
+//   Rank 0 writes out[t, j] (lane 16 of warp 0), out[t, k+j] (lane 24) and
+//   the final filters; every rank writes back its own neurons' voltage and
+//   refractory time.
 // The DC oscillator's pin (dc_mask, zeroed recurrent decoders) is data.
 // The host side picks C (ops/vco_scan.py: _cluster_size).  Clusters never
 // wait on one another, so a grid of more clusters than fit at once runs in
@@ -80,7 +99,8 @@ constexpr int kMaxThreads = 512;
 constexpr int kMaxWarps = kMaxThreads / 32;
 // Neurons per thread: 1, 2 or 4, so at most 2,048 neurons per CTA.
 constexpr int kMaxNpt = 4;
-// Floats per exchanged partial: the five sums, padded to two float4.
+// Floats per exchanged slot: values 0-2 at 0-2 and 3-4 at 4-5, so each
+// half of a warp reads its values with one float4.
 constexpr int kSlot = 8;
 constexpr unsigned kFull = 0xffffffffu;
 
@@ -88,14 +108,52 @@ struct Consts {
   float a_rec, b_rec, a_out, b_out, tau_rc, tau_ref, dt, spike_out;
 };
 
-// Butterfly sum over the warp: every lane ends with the same five sums
-// (each level adds a pair in both orders, which IEEE addition makes equal).
-__device__ __forceinline__ void warp_sum5(float (&p)[5]) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-#pragma unroll
-    for (int c = 0; c < 5; ++c) p[c] += __shfl_xor_sync(kFull, p[c], off);
-  }
+// The decode value (0-4) whose total lane `lane` holds after a
+// reduce-scatter: lanes 0-3 value 0, 4-7 value 1, 8-15 value 2, 16-23
+// value 3, 24-31 value 4.
+__device__ __forceinline__ int value_of(int lane) {
+  const int g = lane >> 2;
+  return g < 2 ? g : (g < 4 ? 2 : 3 + ((g >> 1) & 1));
+}
+
+// Where value c lies in a slot.
+__device__ __forceinline__ int slot_pos(int c) { return c < 3 ? c : c + 1; }
+
+// The reduce-scatter's levels xor 8, 4, 2, 1 (5 shuffles).  On entry a
+// lane of the lower half (lane < 16) holds partial sums of values 0, 1, 2
+// in a0, a1, a2 and a lane of the upper half partial sums of values 3, 4 in
+// a0, a1 (its a2 is not read).  Returns the sum over the lane's half of
+// value_of(lane).  A value split between two lanes is added once, in one
+// of them; the pairs that both keep a value add it in both orders, which
+// IEEE addition makes equal, so the lanes of a value hold the same bits.
+__device__ __forceinline__ float scatter_tail(float a0, float a1, float a2,
+                                              int lane) {
+  const bool hi = lane & 16, b = lane & 8, c = lane & 4;
+  // xor 8: the lower half splits {0, 1} | {2}, the upper half {3} | {4}
+  const float x0 =
+      (b ? (hi ? a1 : a2) : a0) +
+      __shfl_xor_sync(kFull, b ? a0 : (hi ? a1 : a2), 8);
+  const float x1 = a1 + __shfl_xor_sync(kFull, a1, 8);  // lower, b = 0
+  // xor 4: lanes 0-7 split {0} | {1}; the others keep their one value
+  const bool split = !hi && !b;
+  float y = (split && c ? x1 : x0) +
+            __shfl_xor_sync(kFull, split && !c ? x1 : x0, 4);
+  y += __shfl_xor_sync(kFull, y, 2);
+  y += __shfl_xor_sync(kFull, y, 1);
+  return y;
+}
+
+// Reduce-scatter of five sums over the warp (8 shuffles): lane l ends with
+// the warp's total of value_of(l).
+__device__ __forceinline__ float warp_scatter5(const float (&p)[5],
+                                               int lane) {
+  const bool hi = lane & 16;
+  // xor 16: the lower half keeps {0, 1, 2}, the upper half {3, 4}
+  const float r0 = __shfl_xor_sync(kFull, hi ? p[0] : p[3], 16);
+  const float r1 = __shfl_xor_sync(kFull, hi ? p[1] : p[4], 16);
+  const float r2 = __shfl_xor_sync(kFull, p[2], 16);
+  return scatter_tail((hi ? p[3] : p[0]) + r0, (hi ? p[4] : p[1]) + r1,
+                      p[2] + r2, lane);
 }
 
 __device__ __forceinline__ unsigned cluster_rank() {
@@ -140,25 +198,20 @@ __device__ __forceinline__ void mbar_wait(unsigned bar, unsigned parity) {
       "}" :: "r"(bar), "r"(parity) : "memory");
 }
 
-// Five sums (20 bytes) into the slot at shared address `slot` of CTA `rank`
-// of the cluster, completing on that CTA's mbarrier at address `bar`
-// (st.async: the sender does not wait, and no fence orders it).
-__device__ __forceinline__ void send_slot(unsigned slot, unsigned bar,
-                                          unsigned rank,
-                                          const float (&p)[5]) {
-  unsigned rslot, rbar;
+// One float into shared address `at` of CTA `rank` of the cluster,
+// completing on that CTA's mbarrier at address `bar` (st.async: the sender
+// does not wait, and no fence orders it).
+__device__ __forceinline__ void send_value(unsigned at, unsigned bar,
+                                           unsigned rank, float x) {
+  unsigned rat, rbar;
   asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
-               : "=r"(rslot) : "r"(slot), "r"(rank));
+               : "=r"(rat) : "r"(at), "r"(rank));
   asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
                : "=r"(rbar) : "r"(bar), "r"(rank));
   asm volatile(
-      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.f32 "
-      "[%0], {%1, %2, %3, %4}, [%6];\n\t"
       "st.async.shared::cluster.mbarrier::complete_tx::bytes.f32 "
-      "[%0+16], %5, [%6];"
-      :: "r"(rslot), "f"(p[0]), "f"(p[1]), "f"(p[2]), "f"(p[3]), "f"(p[4]),
-         "r"(rbar)
-      : "memory");
+      "[%0], %1, [%2];"
+      :: "r"(rat), "f"(x), "r"(rbar) : "memory");
 }
 
 // -expm1(-delta_t / tau_rc) for the refractory clock `refr` (= rf - dt): the
@@ -186,8 +239,9 @@ __global__ void __launch_bounds__(kMaxThreads) vco_scan_kernel(
     float* __restrict__ f2_out, float* __restrict__ fo_out, float* xs,
     int n, int k, int d, int N, int T, Consts c) {
   extern __shared__ float cols[];  // (2d + N): this oscillator's columns
-  // [step parity][source rank * nwarps + source warp][five sums], and the
-  // mbarrier that completes when a step's slots have all landed
+  // [step parity][source rank * nwarps + source warp][five sums, kSlot
+  // layout], and the mbarrier that completes when a step's slots have all
+  // landed
   __shared__ __align__(16) float xch[2][C * kMaxWarps][kSlot];
   __shared__ __align__(8) unsigned long long full[2];
 
@@ -198,6 +252,7 @@ __global__ void __launch_bounds__(kMaxThreads) vco_scan_kernel(
   const int lane = tid & 31;
   const int warp = tid >> 5;
   const int nwarps = nthreads >> 5;
+  const int nslots = C * nwarps;
   const int per = (n + C - 1) / C;  // neurons per CTA; rank r owns r*per..
   const int lo = static_cast<int>(rank) * per;
 
@@ -260,7 +315,12 @@ __global__ void __launch_bounds__(kMaxThreads) vco_scan_kernel(
     dec[s] = decay(refr[s], c);
   }
   float f0 = f0_in[j], f1 = f1_in[j], f2 = f2_in[j];
-  float g0 = fo_in[j], g1 = fo_in[k + j];
+  // lanes 16-23 keep output filter 0 and lanes 24-31 filter 1: the lanes
+  // that hold those totals; lanes 16 and 24 of rank 0's warp 0 write them
+  const int mine = value_of(lane);
+  const size_t out_col = (mine == 4 ? k : 0) + j;
+  float g = mine >= 3 ? fo_in[out_col] : 0.f;
+  const bool writer = rank == 0 && warp == 0 && (lane == 16 || lane == 24);
   const float dcm = dc_mask[j];
   // every rank's scratch rows are written, and every CTA of the cluster has
   // started and initialised its mbarriers (its slots may be sent to now)
@@ -299,11 +359,14 @@ __global__ void __launch_bounds__(kMaxThreads) vco_scan_kernel(
       p[3] += act * o0[s];
       p[4] += act * o1[s];
     }
-    warp_sum5(p);
+    const float total = warp_scatter5(p, lane);
     if (tid == 0) mbar_expect(bar, bytes);
-    if (lane < C) {
-      send_slot(smem_addr(&xch[buf][static_cast<int>(rank) * nwarps + warp]),
-                bar, lane, p);
+    // lanes 4g + r of groups 0, 1, 2, 4 and 6, r < C: one of each value
+    const int g4 = lane >> 2;
+    if ((lane & 3) < C && ((g4 & 1) == 0 || g4 == 1)) {
+      send_value(smem_addr(&xch[buf][static_cast<int>(rank) * nwarps + warp]
+                               [slot_pos(mine)]),
+                 bar, lane & 3, total);
     }
 
     // Off the chain, while the exchange completes: the rest of the LIF
@@ -322,28 +385,25 @@ __global__ void __launch_bounds__(kMaxThreads) vco_scan_kernel(
     }
 
     mbar_wait(bar, (t >> 1) & 1);
-    // Lane l of every warp of the cluster holds slots l, l + 32, ... and the
-    // butterfly sums them: the same data in the same lanes, the same sums.
-    float r[5] = {0.f, 0.f, 0.f, 0.f, 0.f};
-    for (int src = lane; src < C * nwarps; src += 32) {
-      const float4 a = *reinterpret_cast<const float4*>(&xch[buf][src][0]);
-      r[0] += a.x;
-      r[1] += a.y;
-      r[2] += a.z;
-      r[3] += a.w;
-      r[4] += xch[buf][src][4];
+    // Every warp of the cluster: the same slots in the same lanes and order.
+    const int half = lane & 16 ? 4 : 0;
+    float a0 = 0.f, a1 = 0.f, a2 = 0.f;
+    for (int src = lane & 15; src < nslots; src += 16) {
+      const float4 a = *reinterpret_cast<const float4*>(&xch[buf][src][half]);
+      a0 += a.x;
+      a1 += a.y;
+      a2 += a.z;
     }
-    warp_sum5(r);
+    const float sum = scatter_tail(a0, a1, a2, lane);
+    const float s0 = __shfl_sync(kFull, sum, 0);
+    const float s1 = __shfl_sync(kFull, sum, 4);
+    const float s2 = __shfl_sync(kFull, sum, 8);
 
-    f0 = c.a_rec * f0 + c.b_rec * r[0];
-    f1 = c.a_rec * f1 + c.b_rec * r[1];
-    f2 = c.a_rec * f2 + c.b_rec * r[2];
-    g0 = c.a_out * g0 + c.b_out * r[3];
-    g1 = c.a_out * g1 + c.b_out * r[4];
-    if (rank == 0 && tid == 0) {
-      out[(size_t)t * 2 * k + j] = g0;
-      out[(size_t)t * 2 * k + k + j] = g1;
-    }
+    f0 = c.a_rec * f0 + c.b_rec * s0;
+    f1 = c.a_rec * f1 + c.b_rec * s1;
+    f2 = c.a_rec * f2 + c.b_rec * s2;
+    g = c.a_out * g + c.b_out * sum;
+    if (writer) out[(size_t)t * 2 * k + out_col] = g;
   }
   // A CTA may exit now: every byte the cluster sends into its shared memory
   // belongs to a step whose phase it has waited for.
@@ -361,9 +421,8 @@ __global__ void __launch_bounds__(kMaxThreads) vco_scan_kernel(
     f0_out[j] = f0;
     f1_out[j] = f1;
     f2_out[j] = f2;
-    fo_out[j] = g0;
-    fo_out[k + j] = g1;
   }
+  if (writer) fo_out[out_col] = g;
 }
 
 struct Launch {

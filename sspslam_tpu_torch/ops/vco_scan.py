@@ -184,13 +184,14 @@ _lib: Optional[ctypes.CDLL] = None
 
 def _cluster_size(n: int, k: int, num_sms: int) -> int:
     """CTAs per oscillator for k oscillators of n neurons on a card with
-    ``num_sms`` SMs: 4 for at most 62 oscillators per 132 SMs (and n >= 4,
+    ``num_sms`` SMs: 4 for at most 92 oscillators per 132 SMs (and n >= 4,
     so no CTA is without a neuron), else 1.
 
     Measured on an H100 (132 SMs, n = 800; chip_smoke.py's sweep,
-    PERF.md): C = 4 is faster up to k = 62 and slower from k = 63 to 401.
+    PERF.md): C = 4 is faster up to k = 92, where the clusters of 4 that
+    fit at once end, and slower from k = 93 to 401 but for k = 133.
     Other SM counts scale the edge; that is not measured."""
-    return 4 if 4 <= n and 132 * k <= 62 * num_sms else 1
+    return 4 if 4 <= n and 132 * k <= 92 * num_sms else 1
 
 
 def _nvcc() -> str:

@@ -168,10 +168,14 @@ def test_cpu_tensors_take_the_plain_version(setup):
 @pytest.mark.parametrize("n, k, num_sms, want", [
     (800, 49, 132, 4),    # the main path: 196 CTAs, at most two per SM
     (32, 49, 132, 4),     # the per-step floor's width
-    (800, 62, 132, 4),    # the last k at which clusters of 4 measured faster
-    (800, 63, 132, 1),    # k > 62: one CTA per oscillator
-    (800, 53, 114, 4),    # the same edge on 114 SMs
-    (800, 54, 114, 1),
+    (800, 62, 132, 4),    # the last k before clusters of 4 step up in time
+    (800, 63, 132, 4),    # past that step clusters of 4 still measured faster
+    (800, 92, 132, 4),    # the last k at which clusters of 4 measured faster
+    (800, 93, 132, 1),    # k > 92: one CTA per oscillator
+    (800, 53, 114, 4),
+    (800, 54, 114, 4),
+    (800, 79, 114, 4),    # the same edge on 114 SMs
+    (800, 80, 114, 1),
     (800, 101, 132, 1),   # 3-D ssp_dim 201
     (800, 401, 132, 1),   # 3-D ssp_dim 801
     (3, 49, 132, 1),      # no CTA without a neuron
