@@ -12,6 +12,10 @@ The one device-dependent step is the decoder solve of large ensembles
 (:mod:`.solvers`), which runs in float32 torch on the ``device`` passed to
 :func:`build` and leaves those decoders there as tensors.
 :mod:`.executor` steps a built :class:`Model`.
+
+Spans (``utils.profiling``, recorded only while tracing): ``build.ensembles``
+around the draws of every ensemble's parameters, ``build.solve`` around
+each decoder solve (host or device), with the counter ``build.solves``.
 """
 
 from __future__ import annotations
@@ -24,6 +28,7 @@ import torch
 
 from ..ops import synapses as synapse_ops
 from ..ops.neurons import LIF, NeuronType
+from ..utils import profiling
 from .distributions import sample_dist, UniformHypersphere
 from .graph import (BatchedConnection, Connection, EAElement, Ensemble,
                     EnsembleArray, LearningRule, Network, Neurons, Node,
@@ -324,9 +329,12 @@ def build(network: Network, dt: float = 0.001, seed: Optional[int] = None,
             pes_pres.add(id(pre))
 
     # build every single in declaration order (preserves each ensemble's
-    # seeded parameter draws exactly), then group same-shaped ones
-    singles = [(ens, build_single(ens, -1))
-               for ens in ens_list if id(ens) not in ea_protos]
+    # seeded parameter draws exactly), then group same-shaped ones; the
+    # arrays draw after them
+    with profiling.span("build.ensembles"):
+        singles = [(ens, build_single(ens, -1))
+                   for ens in ens_list if id(ens) not in ea_protos]
+        ea_builds = [(ea, build_array(ea, -1)) for ea in ea_list]
     groups: Dict[Any, list] = {}
     for ens, be in singles:
         fusable = (fuse_ensembles and id(ens) not in voja_posts
@@ -404,7 +412,6 @@ def build(network: Network, dt: float = 0.001, seed: Optional[int] = None,
     ea_solve_proxy: Dict[int, BuiltEnsemble] = {}
     import os as _os
     _ea_fuse_on = _os.environ.get("SSPSLAM_FUSE_EA", "1") != "0"
-    ea_builds = [(ea, build_array(ea, -1)) for ea in ea_list]
     ea_groups: Dict[Any, list] = {}
     for ea, be in ea_builds:
         fusable = (fuse_ensembles and _ea_fuse_on
@@ -676,8 +683,11 @@ def build(network: Network, dt: float = 0.001, seed: Optional[int] = None,
                id(eval_points) if eval_points is not None else None)
         if key in _decoder_cache:
             return _decoder_cache[key]
-        out = _solve_decoders_impl(be, function, reg, pre_indices,
-                                   eval_points)
+        with profiling.span("build.solve"):
+            out = _solve_decoders_impl(be, function, reg, pre_indices,
+                                       eval_points)
+        if profiling.tracing_on():
+            profiling.count("build.solves")
         _decoder_cache[key] = out
         return out
 

@@ -21,6 +21,15 @@ The run is split into segments, as in the JAX package, so sparse probes
 (learned-weight snapshots with a large ``sample_every``) are read from the
 state at segment boundaries, subsampled dense probes are thinned per
 segment with the global step's phase, and progress can be reported.
+
+Spans and counters (``utils.profiling``, recorded only while tracing):
+``sim.run_steps`` around :meth:`Simulator.run_steps`, inside it per
+segment ``sim.stage`` (the input rows or table the steps read),
+``sim.capture`` (each graph captured), ``sim.replay`` (the segment's
+replays, or its eager steps), ``sim.wait`` (a sync, made only while
+tracing) and ``sim.probes`` (the segment's probe rows kept or pulled);
+the counters ``sim.steps``, ``sim.replays`` (segments run) and
+``sim.captures``.
 """
 
 from __future__ import annotations
@@ -34,6 +43,7 @@ import numpy as np
 import torch
 
 from ..ops.quantize import QTensor
+from ..utils import profiling
 from .builder import Model, build
 from .executor import (StepShard, build_params, make_step_fn,
                        sparse_probe_value, step_layout)
@@ -91,6 +101,12 @@ def _capture(device, leaves, pos, advance, steps: int,
         for _ in range(steps):
             advance()
     return g
+
+
+def _count(name: str, n: int = 1) -> None:
+    """Add to a ``sim.*`` counter while tracing (nothing otherwise)."""
+    if profiling.tracing_on():
+        profiling.count(name, n)
 
 
 def _replay(graphs, seg: int, graph_steps: int) -> None:
@@ -322,10 +338,13 @@ class Simulator:
         state, row and buffer indices are restored after the warm-up."""
         g = self._graphs.get(steps)
         if g is None:
-            g = self._graphs[steps] = _capture(
-                self.device, _flatten(self.state) + [self._row, self._pos],
-                self._pos, self._advance, steps,
-                same_stream=self.shard is not None)
+            with profiling.span("sim.capture"):
+                g = self._graphs[steps] = _capture(
+                    self.device, _flatten(self.state) + [self._row,
+                                                         self._pos],
+                    self._pos, self._advance, steps,
+                    same_stream=self.shard is not None)
+            _count("sim.captures")
         return g
 
     def _segment_graphs(self, seg: int) -> None:
@@ -341,11 +360,16 @@ class Simulator:
             self._segment_graphs(seg)
         self._row.fill_(start_row)
         self._pos.zero_()
-        if not graphs:
-            for _ in range(seg):
-                self._advance()
-            return
-        _replay(self._graph, seg, self._graph_steps)
+        _count("sim.replays")
+        with profiling.span("sim.replay"):
+            if not graphs:
+                for _ in range(seg):
+                    self._advance()
+            else:
+                _replay(self._graph, seg, self._graph_steps)
+        if self.device.type == "cuda" and profiling.tracing_on():
+            with profiling.span("sim.wait"):
+                torch.cuda.synchronize(self.device)
 
     # ------------------------------------------------------------------
     def sync(self) -> int:
@@ -403,6 +427,12 @@ class Simulator:
         ``segment_steps`` as one segment when the inputs are preloaded on
         the device (one probe buffer and one bookkeeping pass for the
         block, the same rows as unchained)."""
+        with profiling.span("sim.run_steps"):
+            self._run_steps(n_steps, segment_steps, chain)
+        _count("sim.steps", n_steps)
+
+    def _run_steps(self, n_steps: int, segment_steps: Optional[int],
+                   chain: bool) -> None:
         model = self.model
         if segment_steps is None:
             segment_steps = self._default_segment_steps(n_steps)
@@ -430,38 +460,25 @@ class Simulator:
                     and seg == segment_steps):
                 seg *= max(1, (n_steps - done) // seg)
             start_row = 0
-            if self._splits:
-                if dev_table is not None:
-                    self._set_table(dev_table)
-                    start_row = lo
-                else:
-                    xs = packed[lo:lo + seg]
-                    if xs.shape[0] < seg:
-                        # past the tabulated horizon: repeat the last row
-                        # (TimeTable clamp semantics)
-                        last = xs[-1:] if xs.shape[0] else packed[-1:]
-                        xs = np.concatenate(
-                            [xs, np.repeat(last, seg - xs.shape[0], axis=0)])
-                    self._stage_rows(xs)
-            self._ensure_buffers(seg)
+            with profiling.span("sim.stage"):
+                if self._splits:
+                    if dev_table is not None:
+                        self._set_table(dev_table)
+                        start_row = lo
+                    else:
+                        xs = packed[lo:lo + seg]
+                        if xs.shape[0] < seg:
+                            # past the tabulated horizon: repeat the last
+                            # row (TimeTable clamp semantics)
+                            last = xs[-1:] if xs.shape[0] else packed[-1:]
+                            xs = np.concatenate(
+                                [xs, np.repeat(last, seg - xs.shape[0],
+                                               axis=0)])
+                        self._stage_rows(xs)
+                self._ensure_buffers(seg)
             self._run_segment(seg, start_row)
-            for bp in model.probes:
-                if bp.sparse:
-                    if (cum + seg) % bp.period_steps == 0:
-                        self._probe_data[bp.index].append(
-                            sparse_probe_value(model, self.whole_state(),
-                                               bp)[None])
-                        self._sparse_steps[bp.index].append(cum + seg)
-                else:
-                    e = self._pbuf[bp.index][:seg]
-                    if bp.period_steps > 1:
-                        # row j is step cum+j+1; keep the steps that are
-                        # multiples of the period (global phase)
-                        phase = (bp.period_steps - 1
-                                 - cum % bp.period_steps) % bp.period_steps
-                        e = e[phase::bp.period_steps]
-                    # kept on the device; probe_data() copies to the host
-                    self._probe_data[bp.index].append(e.clone())
+            with profiling.span("sim.probes"):
+                self._keep_probes(cum, seg)
             done += seg
             if self.progress:
                 el = time.time() - t_start
@@ -471,6 +488,29 @@ class Simulator:
         if self.progress:
             print()
         self.n_steps += n_steps
+
+    def _keep_probes(self, cum: int, seg: int) -> None:
+        """Keep a finished segment's probe rows: sparse probes read from
+        the state at their sample steps, dense rows cloned on the device
+        (thinned to their period with the global step's phase)."""
+        model = self.model
+        for bp in model.probes:
+            if bp.sparse:
+                if (cum + seg) % bp.period_steps == 0:
+                    self._probe_data[bp.index].append(
+                        sparse_probe_value(model, self.whole_state(),
+                                           bp)[None])
+                    self._sparse_steps[bp.index].append(cum + seg)
+            else:
+                e = self._pbuf[bp.index][:seg]
+                if bp.period_steps > 1:
+                    # row j is step cum+j+1; keep the steps that are
+                    # multiples of the period (global phase)
+                    phase = (bp.period_steps - 1
+                             - cum % bp.period_steps) % bp.period_steps
+                    e = e[phase::bp.period_steps]
+                # kept on the device; probe_data() copies to the host
+                self._probe_data[bp.index].append(e.clone())
 
     # ------------------------------------------------------------------
     @property
