@@ -130,9 +130,10 @@ result line):
    ``parallel.BatchedEpisodes``: aggregate steps/s over 2,000 timed steps
    after a warm-up segment, kernels per replayed batched step (at most
    1.2 x B = 1's: the batch did not loop), peak device memory; at B = 8 the
-   batched replay against its eager step over 1,000 steps (<= 1e-6), and
-   each episode against a plain Simulator run of it over 2,000 steps (see
-   ``batched_episodes``);
+   batched replay against its eager step over 1,000 steps (<= 1e-6), both
+   with every ``LIF.step`` call through the ATen chain (the step under
+   ``torch.func.vmap``), and each episode against a plain Simulator run of
+   it over 2,000 steps (see ``batched_episodes``);
 21. the reference's second bar: ``python -m
    sspslam_tpu_torch.experiments.scaled_slam --T 40 --seeds 0,1
    --param-dtype int8 --no-pi-control`` (ssp_dim 201 in 3-D, 101 VCOs x 800
@@ -186,7 +187,10 @@ result line):
    (<= 1e-6 against the live run); an int8 bundle against its live run
    (<= 1e-6); served (per-segment upload and the final pull included) and
    live steps/s over 2,000 timed steps; kernels per replayed served step;
-   ``serving_probe``'s JSON keys present and finite;
+   ``serving_probe``'s JSON keys present and finite; the ``LIF.step``
+   calls of the live warm-up all through the LIF kernel, and those of the
+   export's trace all through the ATen chain (``lif.fused`` /
+   ``lif.plain``; the one real step before the trace takes the kernel);
 26. the NumPy interpreter (``NumpyStepper``) on phase 11's model built
    with SSPSLAM_CLEANUP_F32=1 against the card's Simulator over 300 steps,
    within the spike-flip bounds; its steps/s on this host and the card's
@@ -310,7 +314,21 @@ result line):
    each episode's second kernel ending before its ``pi.wait`` ends (the
    margins and the span clock's offset printed); then the cost of
    tracing: 8 pairs of 20 episodes with ``profiling.tracing()`` off and
-   on, in turns.
+   on, in turns;
+37. the LIF kernel (``csrc/lif_step.cu``, after phase 12): its nvcc
+   build time; at the SLAM network's four LIF group shapes (OVC 970;
+   memory, error and recall 3 x 970; the VCO bank 49 x 800; the
+   convolutions' products 784 x 50) and at one rank's rows of each
+   (rank 1 of 4, the sharded step's slice), ``LIF.step`` through the
+   kernel against the ATen chain (``neurons._lif_step_plain``) bitwise
+   over 50 steps, from inputs with J below and above 1, neurons
+   mid-refractory, spikes and voltages below ``min_voltage``, and once
+   more with other constants; each shape's time per call, kernel and
+   chain, inside a CUDA graph of 100 calls; then the flagship SLAM of
+   phase 11 over 1,000 steps through its 10-step graphs, its probe rows
+   and every state leaf bitwise those of the same run with ``LIF.step``
+   patched to the chain, and ``lif.fused`` = 4 a captured step, 0
+   ``lif.plain``.  ``--lif`` runs it alone.
 
 Every CLI subprocess (phases 10, 13, 18, 21-26 and 28-30) runs its module
 as ``python -m`` does, through runpy, and then prints the VCO kernel's
@@ -323,8 +341,9 @@ after phase 17, while the smoke's own process runs the in-process checks
 of phases 28-30, none of which is timed, phase 32 and phase 34's SLAM
 worlds.
 
-The last fifteen lines of standard output are one JSON object of the
-Simulator's numbers, one of the SLAM numbers, one of phases 14-18
+The last sixteen lines of standard output are one JSON object of the
+Simulator's numbers, one of the SLAM numbers, one of phase 37 (``lif``),
+one of phases 14-18
 (``family``), one of phases 19-21 (``scaled``), one of phases 22-24
 (``train``), one of phases 25-27 (``serving``), one of phases 28-30
 (``clis``), one of phases 31-32 (``sharded``, ``demos``), one of phase 33
@@ -343,7 +362,7 @@ directory, e.g. ``git archive <commit> | tar -x -C build/parent``):
 ``vco_scan`` at the cluster size it picks on the main path's first chunk
 and prints one JSON line; it runs none of the phases above.
 ``--tracing`` runs phase 36 alone and prints its JSON line and the card's
-name and power limit.
+name and power limit; ``--lif`` does so for phase 37.
 """
 
 from __future__ import annotations
@@ -452,6 +471,19 @@ def vco_launches() -> int:
     :func:`reset_vco_launches`."""
     from sspslam_tpu_torch.utils import profiling
     return profiling.counter("vco_scan.launches")
+
+
+def lif_calls(fn):
+    """(``lif.fused``, ``lif.plain``): the ``LIF.step`` calls that took the
+    kernel and the ATen chain while ``fn()`` ran under
+    ``profiling.tracing()`` (the counters count only while tracing; the
+    other counters are left as they were)."""
+    from sspslam_tpu_torch.utils import profiling
+    names = ("lif.fused", "lif.plain")
+    before = [profiling.counter(k) for k in names]
+    with profiling.tracing():
+        fn()
+    return tuple(profiling.counter(k) - b for k, b in zip(names, before))
 
 
 def nvidia_smi(query="name,power.limit") -> str:
@@ -564,35 +596,30 @@ def check_long(space, y_k, y_p, what):
                              f"{LONG_MEDIAN_TOL}")
 
 
-class SpikeCounter:
-    """A neuron type that steps ``lif`` and counts the spikes it emits."""
-
-    def __init__(self, lif, device):
-        self.lif = lif
-        self.spikes = torch.zeros((), dtype=torch.int64, device=device)
-
-    def step(self, state, J, dt):
-        new, act = self.lif.step(state, J, dt)
-        self.spikes += torch.count_nonzero(act)
-        return new, act
-
-
 def count_spikes(vco, params, state, vel, corr, trace):
     """The spikes of the plain version's run of one chunk: its loop again,
-    through a SpikeCounter; its SSP trace must equal ``trace``, the plain
-    version's own."""
+    its LIF chain (``_lif_step_plain``) wrapped to count the spikes it
+    emits; its SSP trace must equal ``trace``, the plain version's own."""
+    from unittest import mock
     xc0, xc1 = corr @ params.tf0T, corr @ params.tf1T
     xv = vel @ params.velT_T
-    counter = SpikeCounter(vco._lif(params), vel.device)
+    spikes = torch.zeros((), dtype=torch.int64, device=vel.device)
+    plain = vco._lif_step_plain
+
+    def counted(lif, st, J, dt):
+        new, act = plain(lif, st, J, dt)
+        spikes.add_(torch.count_nonzero(act))
+        return new, act
     rows = []
-    for t in range(vel.shape[0]):
-        state = vco._vco_step(params, counter, state, xc0[t:t + 1],
-                              xc1[t:t + 1], xv[t:t + 1])
-        rows.append(state.fout)
+    with mock.patch.object(vco, "_lif_step_plain", counted):
+        for t in range(vel.shape[0]):
+            state = vco._vco_step(params, vco._lif(params), state,
+                                  xc0[t:t + 1], xc1[t:t + 1], xv[t:t + 1])
+            rows.append(state.fout)
     if not torch.equal(torch.cat(rows) @ vco.output_projection(params),
                        trace):
         raise AssertionError("the counted run differs from the plain version")
-    return int(counter.spikes)
+    return int(spikes)
 
 
 def check_kernel(fpi, space, vco):
@@ -2010,8 +2037,19 @@ def batched_episodes(space, vco):
 
     # replay vs eager of the batched step
     B = BATCH_CHECKED
-    replay = batched(B, BATCH_REPLAY)
-    err = float(np.abs(replay - batched(B, BATCH_REPLAY, eager=True)).max())
+    got = {}
+    lif = {"replay": lif_calls(
+               lambda: got.setdefault("replay", batched(B, BATCH_REPLAY))),
+           "eager": lif_calls(lambda: got.setdefault(
+               "eager", batched(B, BATCH_REPLAY, eager=True)))}
+    replay = got["replay"]
+    err = float(np.abs(replay - got["eager"]).max())
+    # the step under torch.func.vmap keeps the chain (the kernel has no
+    # batching rule)
+    log(f"batched SLAM, B = {B}: LIF.step calls (kernel, chain) {lif}")
+    if not all(f == 0 and p > 0 for f, p in lif.values()):
+        raise AssertionError(f"batched SLAM: LIF paths {lif}")
+    out["lif_calls"] = lif
     log(f"batched SLAM, B = {B}: graph replay vs eager, {BATCH_REPLAY} "
         f"steps: max-abs {err:.3e} (tol {REPLAY_TOL})")
     if not (np.all(np.isfinite(replay)) and err <= REPLAY_TOL):
@@ -2739,11 +2777,22 @@ def serving_phase(space, vco, children, slam):
     sim, probe, build_s = slam_simulator(space, world)
     out["build_s"] = build_s
     sim.preload_inputs(SERVE_WARM + SERVE_STEPS)
-    sim.run_steps(SERVE_WARM, segment_steps=SERVE_SEG)
+    live_lif = lif_calls(
+        lambda: sim.run_steps(SERVE_WARM, segment_steps=SERVE_SEG))
     sim.sync()
     t0 = time.perf_counter()
-    save_bundle(sim, str(tmp / "card"), segment_steps=SERVE_SEG)
+    export_lif = lif_calls(
+        lambda: save_bundle(sim, str(tmp / "card"), segment_steps=SERVE_SEG))
     out["export_s"] = time.perf_counter() - t0
+    # the live Simulator's graphs capture the LIF kernel; save_bundle's one
+    # real step before its trace takes it once a LIF group, and the trace
+    # keeps the chain (the kernel has no tracing rule)
+    out["lif_calls"] = {"live": live_lif, "export": export_lif}
+    log(f"serving: LIF.step calls (kernel, chain) at the live capture "
+        f"{live_lif}, in the export {export_lif}")
+    if not (live_lif[0] > 0 and live_lif[1] == 0
+            and export_lif[0] == len(LIF_GROUPS) and export_lif[1] > 0):
+        raise AssertionError(f"serving: LIF paths {out['lif_calls']}")
     out["bundle_mb"] = bundle_mb(tmp / "card")
     # the rows the live run reads next (a node function of t tabulated
     # from another start rounds t otherwise)
@@ -4141,6 +4190,185 @@ def tracing_phase(fpi, space):
             "cost": tracing_cost(fpi, vel, corr)}
 
 
+# Phase 37: the SLAM network's LIF ensemble groups (shape of the group's
+# state): the OVC ensemble, the memory / error / recall trio, the VCO bank,
+# the two convolutions' product arrays
+LIF_GROUPS = (("OVC", (970,)), ("memory, error, recall", (3, 970)),
+              ("VCO bank", (49, 800)), ("products", (784, 50)))
+LIF_STEPS = 50
+LIF_SLAM_STEPS = 1_000
+LIF_GRAPH_CALLS = 100
+
+
+def lif_inputs(shape, seed):
+    """A LIF group's state and current on the card: J from -1.5 to 3.5 (a
+    quarter above 1 fires within a few steps), voltages from -0.3 (below
+    ``min_voltage``) to 1.2 (above the threshold), refractory times from
+    -1 ms to 3 ms (mid-refractory above dt)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def u(lo, hi):
+        return lo + (hi - lo) * torch.rand(shape, generator=g,
+                                           device="cuda")
+    return {"voltage": u(-0.3, 1.2), "refractory": u(-0.001, 0.003)}, \
+        u(-1.5, 3.5)
+
+
+def lif_mismatch(what, got, want, inputs):
+    """Raise with the first differing neurons of ``got`` against ``want``
+    (name -> tensor), their inputs and both values' bits."""
+    lines = []
+    for name in want:
+        bad = torch.nonzero(got[name].view(torch.int32).ne(
+            want[name].view(torch.int32)).reshape(-1)).reshape(-1)
+        if len(bad):
+            lines.append(f"{name}: {len(bad)} of {want[name].numel()} differ")
+            for i in bad[:4].tolist():
+                ins = {k: float(v.reshape(-1)[i]) for k, v in inputs.items()}
+                lines.append(
+                    f"  [{i}] inputs {ins}: kernel "
+                    f"{float(got[name].reshape(-1)[i])!r} chain "
+                    f"{float(want[name].reshape(-1)[i])!r}")
+    if lines:
+        raise AssertionError(f"{what}: the LIF kernel differs from the ATen "
+                             f"chain:\n" + "\n".join(lines))
+
+
+def lif_bitwise(lif, state, J, what, steps=LIF_STEPS):
+    """``steps`` steps of ``lif`` through the kernel and through the
+    chain from the same state and current; every output bitwise.  Returns
+    the counts of the cases the inputs cover over the run."""
+    from sspslam_tpu_torch.ops import lif_step, neurons
+    dt = 0.001
+    if not lif_step.engages(J, state["voltage"], state["refractory"]):
+        raise AssertionError(f"{what}: the kernel does not engage")
+    cover = {"J_above_1": int((J > 1).sum()), "J_below_1": int((J <= 1)
+                                                               .sum()),
+             "below_min_voltage": int((state["voltage"]
+                                       < lif.min_voltage).sum()),
+             "mid_refractory": 0, "spikes": 0}
+    for _ in range(steps):
+        cover["mid_refractory"] += int((state["refractory"] > dt).sum())
+        v, r, out = lif_step.lif_step(lif, state["voltage"],
+                                      state["refractory"], J, dt)
+        want, want_out = neurons._lif_step_plain(lif, state, J, dt)
+        lif_mismatch(what, {"voltage": v, "refractory": r, "output": out},
+                     {"voltage": want["voltage"],
+                      "refractory": want["refractory"], "output": want_out},
+                     {"J": J, **state})
+        cover["spikes"] += int((out > 0).sum())
+        state = {"voltage": v, "refractory": r}
+    if min(cover.values()) == 0:
+        raise AssertionError(f"{what}: the inputs miss a case: {cover}")
+    return cover
+
+
+def graph_us(fn, calls=LIF_GRAPH_CALLS, replays=20):
+    """Device time per call of ``fn`` in a CUDA graph of ``calls`` calls,
+    by CUDA events over ``replays`` replays (after one)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(calls):
+            fn()
+    g.replay()
+    ms, _ = cuda_ms(g.replay, replays)
+    return ms * 1e3 / calls
+
+
+def lif_simulator_run(sim, probe, steps):
+    """The probe rows and every state leaf of ``steps`` steps from the
+    fresh state through the graphs, and the counters of the run."""
+    from sspslam_tpu_torch.nef.simulator import _flatten
+    from sspslam_tpu_torch.utils import profiling
+    sim.reset()
+    sim._graphs.clear()
+    profiling.reset()
+    with profiling.tracing():
+        sim.run_steps(steps, segment_steps=steps)
+    counts = {k: profiling.counter(k) for k in
+              ("lif.fused", "lif.plain", "sim.captures", "sim.steps")}
+    profiling.reset()
+    return (sim.data[probe], [x.clone() for x in _flatten(sim.state)],
+            counts)
+
+
+def lif_phase(space):
+    """Phase 37 (see the module docstring); returns its JSON numbers."""
+    from unittest import mock
+    from sspslam_tpu_torch.experiments.common import (slam_simulator,
+                                                      slam_world)
+    from sspslam_tpu_torch.ops import lif_step, neurons
+    out = {}
+    t0 = time.perf_counter()
+    _, nvcc_log = lif_step.build_lif_kernel()
+    out["nvcc_s"] = time.perf_counter() - t0 if nvcc_log else None
+    log(f"LIF kernel build: {time.perf_counter() - t0:.1f} s"
+        + ("" if nvcc_log else " (built already)"))
+    for line in nvcc_log.splitlines():
+        if "registers" in line or "spill" in line:
+            log(f"  ptxas: {line.strip()}")
+    lif = neurons.LIF()
+    # tau_rc = 0.03: 1 / tau_rc rounds to another float32 than
+    # float32(1) / float32(tau_rc) does (0.02 rounds to 50 either way)
+    other = neurons.LIF(tau_rc=0.03, tau_ref=0.0015, amplitude=0.7,
+                        min_voltage=-0.1)
+    out["groups"] = {}
+    for i, (name, shape) in enumerate(LIF_GROUPS):
+        state, J = lif_inputs(shape, 37 + i)
+        row = {"shape": list(shape),
+               "cover": lif_bitwise(lif, state, J, name)}
+        lif_bitwise(other, state, J, f"{name}, other constants")
+        # rank 1 of 4: the sharded step's rows of a batched group, the
+        # neurons of a single one
+        per = (shape[0] + 3) // 4
+        lo, hi = per, min(shape[0], 2 * per)
+        sliced = {k: v[lo:hi] for k, v in state.items()}
+        lif_bitwise(lif, sliced, J[lo:hi], f"{name}, rank 1 of 4 [{lo}:{hi}]")
+        row["kernel_us"] = graph_us(lambda: lif_step.lif_step(
+            lif, state["voltage"], state["refractory"], J, 0.001))
+        row["chain_us"] = graph_us(lambda: neurons._lif_step_plain(
+            lif, state, J, 0.001))
+        log(f"LIF {name} {shape}: kernel bitwise the chain over "
+            f"{LIF_STEPS} steps (and rank 1's rows [{lo}:{hi}], other "
+            f"constants); cases {row['cover']}; in a graph of "
+            f"{LIF_GRAPH_CALLS} calls: kernel {row['kernel_us']:.3f} us, "
+            f"chain {row['chain_us']:.3f} us a call")
+        out["groups"][name] = row
+
+    world = slam_world()
+    sim, probe, build_s = slam_simulator(space, world)
+    rows, leaves, counts = lif_simulator_run(sim, probe, LIF_SLAM_STEPS)
+
+    def plain_step(self, state, J, dt):
+        return neurons._lif_step_plain(self, state, J, dt)
+    with mock.patch.object(neurons.LIF, "step", plain_step):
+        want_rows, want_leaves, plain_counts = lif_simulator_run(
+            sim, probe, LIF_SLAM_STEPS)
+    captured = counts["sim.captures"] * (1 + sim._graph_steps)
+    out["slam"] = {"build_s": build_s, "counts": counts,
+                   "fused_per_captured_step":
+                       counts["lif.fused"] / captured if captured else None,
+                   "rows_equal": bool(np.array_equal(rows, want_rows)),
+                   "leaves_equal": all(torch.equal(a, b) for a, b in
+                                       zip(leaves, want_leaves)),
+                   "n_leaves": len(leaves)}
+    log(f"LIF on the SLAM Simulator, {LIF_SLAM_STEPS} steps through "
+        f"{sim._graph_steps}-step graphs: {out['slam']}; the chain's run "
+        f"counted {plain_counts}")
+    if not (out["slam"]["rows_equal"] and out["slam"]["leaves_equal"]
+            and out["slam"]["fused_per_captured_step"] == 4
+            and counts["lif.plain"] == 0 and np.isfinite(rows).all()):
+        raise AssertionError(f"LIF on the SLAM Simulator: {out['slam']}")
+    del sim
+    return out
+
+
 def time_checkout(root: str) -> None:
     """``--time ROOT``: ms per CHUNK-step chunk of the ``vco_scan`` of the
     checkout at ``root``, at the cluster size it picks, on the main path's
@@ -4173,6 +4401,8 @@ def main() -> int:
                          "ROOT (see the module docstring)")
     ap.add_argument("--tracing", action="store_true",
                     help="only run phase 36, the program's spans")
+    ap.add_argument("--lif", action="store_true",
+                    help="only run phase 37, the LIF kernel")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4189,6 +4419,15 @@ def main() -> int:
                                  chunk_steps=CHUNK, device="cuda")
         log(f"torch {torch.__version__}, {nvidia_smi()}")
         print(json.dumps({"tracing": tracing_phase(fpi, space)}),
+              flush=True)
+        print(nvidia_smi(), flush=True)
+        return 0
+    if args.lif:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        log(f"torch {torch.__version__} (CUDA {torch.version.cuda}), "
+            f"{nvidia_smi()}")
+        print(json.dumps({"lif": lif_phase(make_space(HexagonalSSPSpace))}),
               flush=True)
         print(nvidia_smi(), flush=True)
         return 0
@@ -4258,6 +4497,9 @@ def main() -> int:
     # 11-12. SLAM
     slam = slam_path(space, vco)
 
+    # 37. the LIF kernel
+    lif = lif_phase(space)
+
     # 33. the port's benchmark and its probes, on the quiet card
     bench = bench_phase(vco, slam)
 
@@ -4311,6 +4553,7 @@ def main() -> int:
         f"bound")
     print(json.dumps({"simulator": simulator}), flush=True)
     print(json.dumps({"slam": slam}), flush=True)
+    print(json.dumps({"lif": lif}), flush=True)
     print(json.dumps({"family": family}), flush=True)
     print(json.dumps({"scaled": scaled}), flush=True)
     print(json.dumps({"train": training}), flush=True)

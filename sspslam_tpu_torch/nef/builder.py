@@ -686,8 +686,7 @@ def build(network: Network, dt: float = 0.001, seed: Optional[int] = None,
         with profiling.span("build.solve"):
             out = _solve_decoders_impl(be, function, reg, pre_indices,
                                        eval_points)
-        if profiling.tracing_on():
-            profiling.count("build.solves")
+        profiling.count_traced("build.solves")
         _decoder_cache[key] = out
         return out
 

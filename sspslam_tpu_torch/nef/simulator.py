@@ -103,12 +103,6 @@ def _capture(device, leaves, pos, advance, steps: int,
     return g
 
 
-def _count(name: str, n: int = 1) -> None:
-    """Add to a ``sim.*`` counter while tracing (nothing otherwise)."""
-    if profiling.tracing_on():
-        profiling.count(name, n)
-
-
 def _replay(graphs, seg: int, graph_steps: int) -> None:
     """Replay ``seg`` steps: graphs of ``graph_steps`` steps, then one-step
     graphs for the rest (``graphs(steps)`` returns, capturing on first use,
@@ -344,7 +338,7 @@ class Simulator:
                                                          self._pos],
                     self._pos, self._advance, steps,
                     same_stream=self.shard is not None)
-            _count("sim.captures")
+            profiling.count_traced("sim.captures")
         return g
 
     def _segment_graphs(self, seg: int) -> None:
@@ -360,7 +354,7 @@ class Simulator:
             self._segment_graphs(seg)
         self._row.fill_(start_row)
         self._pos.zero_()
-        _count("sim.replays")
+        profiling.count_traced("sim.replays")
         with profiling.span("sim.replay"):
             if not graphs:
                 for _ in range(seg):
@@ -429,7 +423,7 @@ class Simulator:
         block, the same rows as unchained)."""
         with profiling.span("sim.run_steps"):
             self._run_steps(n_steps, segment_steps, chain)
-        _count("sim.steps", n_steps)
+        profiling.count_traced("sim.steps", n_steps)
 
     def _run_steps(self, n_steps: int, segment_steps: Optional[int],
                    chain: bool) -> None:

@@ -18,7 +18,11 @@ step.
 
 ``LIF.step`` keeps the executor's ``-expm1`` / ``log1p`` forms; the VCO-bank
 CUDA kernel (``csrc/vco_scan.cu``) uses the same formulas (``expm1f`` /
-``log1pf``) so its plain PyTorch version can share this function.
+``log1pf``) so its plain PyTorch version can share this function's chain
+of torch ops, :func:`_lif_step_plain`.  On the card ``LIF.step`` runs one
+hand-written kernel per call (``csrc/lif_step.cu``, :mod:`.lif_step`),
+bitwise that chain, which it keeps under autograd, ``torch.func``
+transforms, ``torch.export`` and off the card.
 """
 
 from __future__ import annotations
@@ -28,6 +32,9 @@ from typing import Dict
 
 import numpy as np
 import torch
+
+from ..utils import profiling
+from . import lif_step
 
 __all__ = ["NeuronType", "LIF", "LIFRate", "RectifiedLinear",
            "SpikingRectifiedLinear", "QuantizedLIF", "LoihiLIF",
@@ -212,23 +219,39 @@ class LIF(LIFRate):
                 "refractory": np.zeros(shape, dtype)}
 
     def step(self, state, J, dt):
-        voltage = state["voltage"]
-        refractory = state["refractory"] - dt
-        delta_t = _clip(dt - refractory, 0.0, dt)
-        voltage = voltage + (J - voltage) * -torch.expm1(-delta_t / self.tau_rc)
+        """One dt: on the card, where ``lif_step.engages`` holds, the
+        kernel ``csrc/lif_step.cu`` (counter ``lif.fused``); elsewhere the
+        ATen chain :func:`_lif_step_plain` (counter ``lif.plain``).  The
+        counters count while tracing (``utils.profiling.tracing_on``)."""
+        if lif_step.engages(J, state["voltage"], state["refractory"]):
+            profiling.count_traced("lif.fused")
+            voltage, refractory, out = lif_step.lif_step(
+                self, state["voltage"], state["refractory"], J, dt)
+            return {"voltage": voltage, "refractory": refractory}, out
+        profiling.count_traced("lif.plain")
+        return _lif_step_plain(self, state, J, dt)
 
-        spiked = voltage > 1.0
-        # interpolate the spike time within the step for smoother rates
-        denom = torch.where(spiked, _clip(J - 1.0, 1e-12), torch.ones_like(J))
-        overshoot = _clip((voltage - 1.0) / denom, 0.0, 1.0 - 1e-6)
-        t_spike = dt + self.tau_rc * torch.log1p(-overshoot)
 
-        out = torch.where(spiked, torch.full_like(voltage, self.amplitude / dt),
-                          torch.zeros_like(voltage))
-        voltage = torch.where(spiked, torch.zeros_like(voltage),
-                              _clip(voltage, self.min_voltage))
-        refractory = torch.where(spiked, self.tau_ref + t_spike, refractory)
-        return {"voltage": voltage, "refractory": refractory}, out
+def _lif_step_plain(lif, state, J, dt):
+    """``LIF.step`` as a chain of torch ops: any device and dtype, autograd,
+    ``torch.func`` transforms and ``torch.export``."""
+    voltage = state["voltage"]
+    refractory = state["refractory"] - dt
+    delta_t = _clip(dt - refractory, 0.0, dt)
+    voltage = voltage + (J - voltage) * -torch.expm1(-delta_t / lif.tau_rc)
+
+    spiked = voltage > 1.0
+    # interpolate the spike time within the step for smoother rates
+    denom = torch.where(spiked, _clip(J - 1.0, 1e-12), torch.ones_like(J))
+    overshoot = _clip((voltage - 1.0) / denom, 0.0, 1.0 - 1e-6)
+    t_spike = dt + lif.tau_rc * torch.log1p(-overshoot)
+
+    out = torch.where(spiked, torch.full_like(voltage, lif.amplitude / dt),
+                      torch.zeros_like(voltage))
+    voltage = torch.where(spiked, torch.zeros_like(voltage),
+                          _clip(voltage, lif.min_voltage))
+    refractory = torch.where(spiked, lif.tau_ref + t_spike, refractory)
+    return {"voltage": voltage, "refractory": refractory}, out
 
 
 @dataclasses.dataclass(frozen=True)

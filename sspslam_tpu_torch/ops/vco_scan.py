@@ -26,18 +26,14 @@ JAX parameters across.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-from pathlib import Path
 from typing import Mapping, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..utils import profiling
-from .neurons import LIF
+from . import cuda_build
+from .neurons import LIF, _lif_step_plain
 
 __all__ = ["VCOParams", "VCOState", "initial_vco_state", "output_projection",
            "vco_reference_step", "vco_scan_reference", "vco_scan",
@@ -113,13 +109,15 @@ def output_projection(params: VCOParams) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def _vco_step(p: VCOParams, lif: LIF, s: VCOState, xc0, xc1, xv) -> VCOState:
-    """One dt of the VCO bank given this step's projected inputs (1, k)."""
+    """One dt of the VCO bank given this step's projected inputs (1, k);
+    the LIF update is the chain of torch ops on every device, so the
+    kernel is held to a version with no hand-written kernel in it."""
     x0 = s.f0 + xc0 + p.dc_mask
     x1 = s.f1 + xc1
     x2 = s.f2 + xv
     J = p.enc0 * x0 + p.enc1 * x1 + p.enc2 * x2 + p.bias
-    neurons, act = lif.step({"voltage": s.voltage,
-                             "refractory": s.refractory}, J, p.dt)
+    neurons, act = _lif_step_plain(lif, {"voltage": s.voltage,
+                                         "refractory": s.refractory}, J, p.dt)
 
     def decode(D):
         return torch.sum(act * D, dim=0, keepdim=True)
@@ -171,10 +169,7 @@ def vco_scan_reference(params: VCOParams, state: VCOState,
 # The CUDA kernel: build, load, launch
 # ---------------------------------------------------------------------------
 
-_SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "vco_scan.cu"
-_BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-_NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+_SOURCE = cuda_build.CSRC / "vco_scan.cu"
 #: csrc/vco_scan.cu: at most 4 neurons per thread, 512 threads per CTA
 _MAX_NEURONS = 4 * 512
 #: CTAs per oscillator (one thread-block cluster) the kernel is built for
@@ -194,28 +189,10 @@ def _cluster_size(n: int, k: int, num_sms: int) -> int:
     return 4 if 4 <= n and 132 * k <= 92 * num_sms else 1
 
 
-def _nvcc() -> str:
-    return shutil.which("nvcc") or os.path.join(
-        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")
-
-
 def build_vco_kernel() -> Tuple[str, str]:
     """Compile ``csrc/vco_scan.cu`` for sm_90a unless this source is built
     already; returns (library path, nvcc's output — '' if it was built)."""
-    src = _SOURCE.read_bytes()
-    tag = hashlib.sha256(src + " ".join(_NVCC_FLAGS).encode()).hexdigest()
-    lib_path = _BUILD_DIR / f"libvco_scan_{tag[:16]}.so"
-    if lib_path.exists():
-        return str(lib_path), ""
-    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
-    proc = subprocess.run([_nvcc(), *_NVCC_FLAGS, "-o", str(tmp),
-                           str(_SOURCE)], capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed to build {_SOURCE}:\n"
-                           f"{proc.stdout}{proc.stderr}")
-    os.replace(tmp, lib_path)
-    return str(lib_path), proc.stdout + proc.stderr
+    return cuda_build.build(_SOURCE, "vco_scan")
 
 
 def _load() -> ctypes.CDLL:

@@ -12,10 +12,11 @@ no counterpart of the JAX module's TPU on-chip-memory share) and
 The recorder (no counterpart in the JAX package): :func:`span` marks a
 stretch of host time where the program does its work (``with
 span("pi.upload"): ...``), with the span open around it as its parent;
-:func:`count` adds to a named counter.  Spans are recorded only while
-tracing is on, that is while a ``torch.profiler`` profile records or
-inside :func:`tracing`; otherwise :func:`span` hands back one shared
-object that reads no clock.  Counters are always kept.  Spans are kept in
+:func:`count` adds to a named counter, :func:`count_traced` only while
+tracing is on.  Spans are recorded only while tracing is on, that is
+while a ``torch.profiler`` profile records or inside :func:`tracing`;
+otherwise :func:`span` hands back one shared object that reads no clock.
+Counters are always kept.  Spans are kept in
 memory (:func:`spans`) on the ``time.perf_counter_ns()`` clock, which
 :func:`profiler_clock_offset_ns` maps onto the profiler's; no profiler
 range is opened, so the device trace holds only the device's work.
@@ -35,7 +36,7 @@ import torch
 
 __all__ = ["model_utilization_summary", "print_utilization_summary",
            "trace_run", "Span", "span", "tracing", "tracing_on", "spans",
-           "self_ns", "count", "counter", "reset",
+           "self_ns", "count", "count_traced", "counter", "reset",
            "profiler_clock_offset_ns"]
 
 
@@ -201,6 +202,13 @@ def self_ns(records: List[Span], i: int) -> int:
 def count(name: str, n: int = 1) -> None:
     """Add ``n`` to the counter ``name`` (kept whether tracing or not)."""
     _counts[name] = _counts.get(name, 0) + n
+
+
+def count_traced(name: str, n: int = 1) -> None:
+    """Add ``n`` to the counter ``name`` while tracing is on
+    (:func:`tracing_on`); nothing otherwise."""
+    if tracing_on():
+        count(name, n)
 
 
 def counter(name: str) -> int:
