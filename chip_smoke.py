@@ -918,7 +918,7 @@ def profile_steps(sim, eager):
     from sspslam_tpu_torch.experiments.device_time_probe import \
         profile_steps as profiled
     sim.reset()
-    sim._eager = eager
+    sim.loop.eager = eager
     sim.preload_inputs(2 * PROFILE_STEPS)
     sim.run_steps(PROFILE_STEPS, segment_steps=PROFILE_STEPS)
     sim.sync()
@@ -927,7 +927,7 @@ def profile_steps(sim, eager):
         sim.run_steps(PROFILE_STEPS, segment_steps=PROFILE_STEPS)
         sim.sync()
     p = profiled(run, PROFILE_STEPS)
-    sim._eager = False
+    sim.loop.eager = False
     top = [(name[:80], us, calls) for name, us, calls in p["top"]]
     return (p["kernels_per_step"], p["events_per_step"],
             p["busy_us_per_step"], p["busy_share"], top)
@@ -959,7 +959,7 @@ def simulator_path(space, vco, fast_trace):
     rates, first = {}, None
     reset_vco_launches()
     for U in GRAPH_UNITS:
-        sim._graph_steps = U
+        sim.loop.graph_steps = U
         rates[U], trace, _ = timed_run(sim, probe)
         log(f"Simulator, graphs of {U} steps: {rates[U]:.0f} steps/s over "
             f"{TIMED} steps")
@@ -973,10 +973,10 @@ def simulator_path(space, vco, fast_trace):
         raise AssertionError(f"the Simulator path launched vco_scan "
                              f"{launches} times")
     best = max(rates, key=rates.get)
-    sim._graph_steps = best
-    sim._eager = True
+    sim.loop.graph_steps = best
+    sim.loop.eager = True
     eager_rate, _, _ = timed_run(sim, probe, EAGER_TIMED, EAGER_WARM)
-    sim._eager = False
+    sim.loop.eager = False
     log(f"Simulator, eager: {eager_rate:.0f} steps/s over {EAGER_TIMED} "
         f"steps; "
         f"fastest graph length {best} steps")
@@ -1345,14 +1345,14 @@ def replay_vs_eager(sim, probe, what):
     traces = {}
     for eager in (False, True):
         sim.reset()
-        sim._eager = eager
+        sim.loop.eager = eager
         sim.preload_inputs(LONG)
         t0 = time.perf_counter()
         sim.run_steps(LONG, segment_steps=LONG)
         sim.sync()
         eager_rate = LONG / (time.perf_counter() - t0)
         traces[eager] = sim.data[probe]
-    sim._eager = False
+    sim.loop.eager = False
     err = float(np.abs(traces[False] - traces[True]).max())
     log(f"{what}: graph replay vs eager step, {LONG} steps: max-abs "
         f"{err:.3e} (tol {REPLAY_TOL}); eager {eager_rate:.0f} steps/s")
@@ -1391,16 +1391,16 @@ def hoisted_threshold(sim, probe):
         sim._preload_start = sim.n_steps   # replay the same input rows
         if value is not None:
             rate.fill_(value)
-        sim._eager = eager
+        sim.loop.eager = eager
         sim.run_steps(SHIFT_STEPS, segment_steps=SHIFT_STEPS)
         traces.append(sim.data[probe][-SHIFT_STEPS:])
         if graphs is None:
-            graphs = dict(sim._graphs)
-        elif not eager and {k: id(g) for k, g in sim._graphs.items()} != \
+            graphs = dict(sim.loop.graphs)
+        elif not eager and {k: id(g) for k, g in sim.loop.graphs.items()} != \
                 {k: id(g) for k, g in graphs.items()}:
             raise AssertionError("changing a hoisted threshold recaptured "
                                  "the graphs")
-    sim._eager = False
+    sim.loop.eager = False
     rate.copy_(built)
     moved = float(np.abs(traces[0] - traces[1]).max())
     same = float(np.abs(traces[1] - traces[2]).max())
@@ -1471,7 +1471,7 @@ def slam_path(space, vco):
     # steps
     rate, timed, window = timed_run(sim, probe, SIM_TIMED, SIM_WARM)
     log(f"SLAM: {rate:.0f} steps/s over {SIM_TIMED} steps (graphs of "
-        f"{sim._graph_steps} steps); window ({ClockSampler.QUERY}): just "
+        f"{sim.loop.graph_steps} steps); window ({ClockSampler.QUERY}): just "
         f"before {window[0]}; just after {window[1]}")
     if not np.all(np.isfinite(timed)):
         raise AssertionError("SLAM timed run is not finite")
@@ -1549,7 +1549,7 @@ def full_checks(what, sim, probe, space, path, build_s, steps=SIM_TIMED):
         out["tracking_cosine"] = cos
     rate, timed, window = timed_run(sim, probe, steps, SIM_WARM)
     log(f"{what}: {rate:.0f} steps/s over {steps} steps (graphs of "
-        f"{sim._graph_steps} steps); window ({ClockSampler.QUERY}): just "
+        f"{sim.loop.graph_steps} steps); window ({ClockSampler.QUERY}): just "
         f"before {window[0]}; just after {window[1]}")
     if not np.all(np.isfinite(timed)):
         raise AssertionError(f"{what}: the timed run is not finite")
@@ -1767,10 +1767,10 @@ def pi_variants(space, vco):
         traces = {}
         for eager in (False, True):
             sim.reset()
-            sim._eager = eager
+            sim.loop.eager = eager
             sim.run_steps(VARIANT_STEPS, segment_steps=VARIANT_STEPS)
             traces[eager] = sim.data[probe]
-        sim._eager = False
+        sim.loop.eager = False
         err = float(np.abs(traces[False] - traces[True]).max())
         dec = decode(space, traces[False][-1])
         dist = float(np.linalg.norm(dec - truth))
@@ -2032,7 +2032,7 @@ def batched_episodes(space, vco):
 
     def batched(B, steps, eager=False):
         runner = BatchedEpisodes(sim, [t[:, :B] for t in tables])
-        runner.eager = eager
+        runner.loop.eager = eager
         return runner.run(steps)[pi].cpu().numpy()
 
     # replay vs eager of the batched step
@@ -2576,11 +2576,11 @@ def tune_in_place(vco):
     t0 = time.perf_counter()
     sim, probe = tlc.build_sim(world, base, 0, device="cuda")
     before = run(sim, probe)
-    graphs = dict(sim._graphs)
+    graphs = dict(sim.loop.graphs)
     tlc.configure(sim, cfg)
     got = run(sim, probe)
-    same_graphs = (sim._graphs.keys() == graphs.keys() and all(
-        sim._graphs[k] is g for k, g in graphs.items()))
+    same_graphs = (sim.loop.graphs.keys() == graphs.keys() and all(
+        sim.loop.graphs[k] is g for k, g in graphs.items()))
     del sim
     fresh, fprobe = tlc.build_sim(world, cfg, 0, device="cuda")
     want = run(fresh, fprobe)
@@ -2619,13 +2619,13 @@ def closed_loop_phase(space, vco):
     want = sim.data[probe]
     sim.reset()
     rows = sim._pack_cols(sim._tabulate_inputs(LOOP_STEPS))
-    nodes = list(zip(sim.model.input_nodes, sim._input_splits()))
+    nodes = list(zip(sim.model.input_nodes, sim.input_splits))
     sess = ClosedLoopSession(sim, outputs=[probe], tick_steps=TICK)
     t0 = time.perf_counter()
     sess.compile()
     sim.sync()
     compile_s = time.perf_counter() - t0
-    graph = sim._graphs[TICK]
+    graph = sim.loop.graphs[TICK]
     got = [sess.tick({n: rows[i:i + TICK, a:b] for n, (a, b) in nodes})[
         probe] for i in range(0, LOOP_STEPS, TICK)]
     got = np.concatenate(got)
@@ -2636,19 +2636,20 @@ def closed_loop_phase(space, vco):
         t0 = time.perf_counter()
         sess.tick(hold)
         lat.append((time.perf_counter() - t0) * 1e3)
-    one_capture = list(sim._graphs) == [TICK] and sim._graphs[TICK] is graph
+    one_capture = (list(sim.loop.graphs) == [TICK]
+                   and sim.loop.graphs[TICK] is graph)
     med, p90, p99 = (float(np.percentile(lat, q)) for q in (50, 90, 99))
     log(f"closed loop (SLAM, ticks of {TICK}): ticks vs uninterrupted run, "
         f"{LOOP_STEPS} steps: max-abs {err:.3e} (tol {REPLAY_TOL}); graphs "
         f"after {LOOP_STEPS // TICK + LATENCY_TICKS} ticks: "
-        f"{sorted(sim._graphs)}, the first capture kept: {one_capture}; "
+        f"{sorted(sim.loop.graphs)}, the first capture kept: {one_capture}; "
         f"capture {compile_s:.2f} s; tick latency over {LATENCY_TICKS} "
         f"ticks: median {med:.2f} ms, p90 {p90:.2f}, p99 {p99:.2f} "
         f"({1e3 / med:.1f} ticks/s, {TICK / med:.2f} x real time)")
     if not (got.shape == want.shape and np.all(np.isfinite(got))
             and err <= REPLAY_TOL and one_capture):
         raise AssertionError(f"closed loop: max-abs {err}, graphs "
-                             f"{sorted(sim._graphs)}")
+                             f"{sorted(sim.loop.graphs)}")
     del sim, sess
     launches = vco_launches()
     if launches != 0:
@@ -2729,7 +2730,8 @@ def cpu_twin(sim):
     twin = copy.copy(sim)
     twin.device = torch.device("cpu")
     twin._step_fn = make_step_fn(sim.model, device="cpu")
-    twin._params = _cpu_tree(sim.params)
+    twin.loop = copy.copy(sim.loop)     # params of its own, sim's kept
+    twin.loop.params = _cpu_tree(sim.params)
     twin.state = _cpu_tree(sim.state)
     return twin
 
@@ -2853,10 +2855,10 @@ def serving_phase(space, vco, children, slam):
     timed = next(iter(m.run(rows).values()))
     served = SERVE_TIMED / (time.perf_counter() - t0)
     from sspslam_tpu_torch.nef import Simulator
-    k_served = replay_kernels(m._graph(Simulator.GRAPH_STEPS),
-                              m._row.zero_)
-    k_live = replay_kernels(sim._graph(Simulator.GRAPH_STEPS),
-                            lambda: (sim._row.zero_(), sim._pos.zero_()))
+    k_served = replay_kernels(m.loop.graph(Simulator.GRAPH_STEPS),
+                              m.loop.start)
+    k_live = replay_kernels(sim.loop.graph(Simulator.GRAPH_STEPS),
+                            sim.loop.start)
     differ = {k: (k_served.get(k, 0), k_live.get(k, 0))
               for k in set(k_served) | set(k_live)
               if k_served.get(k, 0) != k_live.get(k, 0)}
@@ -3146,9 +3148,9 @@ def recovery_schedule(vco):
 
     def run(eager, window):
         sim.reset(keep_inputs=True)
-        sim._eager = eager
+        sim.loop.eager = eager
         sim.run_steps(FLIP_IN)
-        graphs = dict(sim._graphs)
+        graphs = dict(sim.loop.graphs)
         if window:
             enter()
         sim.run_steps(FLIP_OUT - FLIP_IN)
@@ -3156,14 +3158,14 @@ def recovery_schedule(vco):
             leave()
         sim.run_steps(FLIP_END - FLIP_OUT)
         sim.sync()
-        if not eager and any(sim._graphs.get(k) is not g
+        if not eager and any(sim.loop.graphs.get(k) is not g
                              for k, g in graphs.items()):
             raise AssertionError("the recovery writes recaptured a graph")
         return {bp.index: sim.data[bp.obj] for bp in dense}
 
     replay = run(False, True)
     eager = run(True, True)
-    sim._eager = False
+    sim.loop.eager = False
     plain = run(False, False)
     if [(id(x), x.data_ptr()) for x in _flatten(sim.params)] != leaves:
         raise AssertionError("the recovery writes replaced a params leaf")
@@ -3363,10 +3365,10 @@ def maps_in_process(vco):
         for x, s in zip(_flatten(runner.state), snap):
             x.copy_(s)
         runner.n_steps = row
-        runner.eager = eager
+        runner.loop.eager = eager
         traces[eager] = runner.run(MAP_STEPS)[p_idx].cpu().numpy()
         runner.sync()
-    runner.eager = False
+    runner.loop.eager = False
     live_err = float(np.abs(traces[False] - traces[True]).max())
     log(f"live_merge in process (flagship, B = 2): one exchange after "
         f"{MAP_STEPS} steps vs A + B - M_prev: {exch_err:.3e}; the next "
@@ -3564,14 +3566,14 @@ def demo_replay(sim, what, steps=DEMO_REPLAY):
     runs = {}
     for eager in (False, True):
         sim.reset()
-        sim._eager = eager
+        sim.loop.eager = eager
         with contextlib.redirect_stdout(io.StringIO()):
             sim.run_steps(steps)
         sim.sync()
         runs[eager] = ([sim.data[bp.obj] for bp in sim.model.probes],
                        [x.detach().cpu().double().numpy()
                         for x in _flatten(sim.state)])
-    sim._eager = False
+    sim.loop.eager = False
     sim.reset()
     err, sparse = 0.0, 0
     for bp, a, b in zip(sim.model.probes, runs[False][0], runs[True][0]):
@@ -4287,7 +4289,7 @@ def lif_simulator_run(sim, probe, steps):
     from sspslam_tpu_torch.nef.simulator import _flatten
     from sspslam_tpu_torch.utils import profiling
     sim.reset()
-    sim._graphs.clear()
+    sim.loop.graphs.clear()
     profiling.reset()
     with profiling.tracing():
         sim.run_steps(steps, segment_steps=steps)
@@ -4350,7 +4352,7 @@ def lif_phase(space):
     with mock.patch.object(neurons.LIF, "step", plain_step):
         want_rows, want_leaves, plain_counts = lif_simulator_run(
             sim, probe, LIF_SLAM_STEPS)
-    captured = counts["sim.captures"] * (1 + sim._graph_steps)
+    captured = counts["sim.captures"] * (1 + sim.loop.graph_steps)
     out["slam"] = {"build_s": build_s, "counts": counts,
                    "fused_per_captured_step":
                        counts["lif.fused"] / captured if captured else None,
@@ -4359,7 +4361,7 @@ def lif_phase(space):
                                        zip(leaves, want_leaves)),
                    "n_leaves": len(leaves)}
     log(f"LIF on the SLAM Simulator, {LIF_SLAM_STEPS} steps through "
-        f"{sim._graph_steps}-step graphs: {out['slam']}; the chain's run "
+        f"{sim.loop.graph_steps}-step graphs: {out['slam']}; the chain's run "
         f"counted {plain_counts}")
     if not (out["slam"]["rows_equal"] and out["slam"]["leaves_equal"]
             and out["slam"]["fused_per_captured_step"] == 4

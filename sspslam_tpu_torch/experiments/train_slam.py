@@ -112,7 +112,7 @@ def main(argv=None):
     # test table's velocity columns (the only domain_dim-wide input) onto
     # the train scale
     scale_tr, scale_te = world_tr["fns"][1], world_te["fns"][1]
-    splits = sim_te._input_splits()
+    splits = sim_te.input_splits
     widths = [n.size_out for n in sim_te.model.input_nodes]
     (va, vb), = [(a, b) for (a, b), w in zip(splits, widths) if w == 2]
     xs_te = np.array(xs_te)

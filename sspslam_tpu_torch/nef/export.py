@@ -15,10 +15,10 @@ Port of :mod:`sspslam_tpu.nef.export`.  ``save_bundle(sim, path)`` writes
   columns, the dense probes, the two tree specs).
 
 ``ServingModel(path)`` loads a bundle and steps it with no network, no
-builder and no decoder solving.  On a CUDA device it keeps the state in
-fixed tensors and replays the step as CUDA graphs of
-``Simulator.GRAPH_STEPS`` steps over a device input table, as the
-Simulator does; on the CPU it steps eagerly.  ``segment_steps`` is the
+builder and no decoder solving, through the Simulator's step loop
+(:class:`.steploop.StepLoop`): the state in fixed tensors, on a CUDA
+device CUDA graphs of ``GRAPH_STEPS`` steps replayed over a device input
+table, on the CPU eager steps.  ``segment_steps`` is the
 serving call's granularity: one input upload and one block of probe rows
 per segment.  Learned state (PES decoders, Voja encoders) lives in the
 state, so a bundle saved after a training run ships the learned map;
@@ -60,7 +60,8 @@ from torch.export.graph_signature import InputKind
 from torch.export.passes import move_to_device_pass
 
 from ..ops.quantize import QTensor
-from .simulator import Simulator, _capture, _flatten, _replay
+from .simulator import Simulator
+from .steploop import StepLoop, flatten
 
 __all__ = ["save_bundle", "ServingModel"]
 
@@ -224,7 +225,7 @@ class _Step(torch.nn.Module):
         new, emits = self.step(_build(self.state_spec, state),
                                [x[a:b] for a, b in self.splits],
                                _build(self.params_spec, params))
-        return _flatten(new), [emits[i] for i in self.probes]
+        return flatten(new), [emits[i] for i in self.probes]
 
 
 def _unique(labels):
@@ -264,7 +265,7 @@ def save_bundle(sim: Simulator, path: str, segment_steps: int = 1000,
             f"at load")
     model = sim.model
     shard = getattr(sim, "shard", None)
-    splits = sim._input_splits()
+    splits = sim.input_splits
     width = splits[-1][1] if splits else 0
     dense = [bp for bp in model.probes if not bp.sparse]
 
@@ -280,9 +281,9 @@ def save_bundle(sim: Simulator, path: str, segment_steps: int = 1000,
     # the rank's slices have the whole trees' structure: one spec serves
     program = _Step(sim._step_fn, splits, state_spec, params_spec,
                     [bp.index for bp in dense])
-    args = (_flatten(sim.state),
+    args = (flatten(sim.state),
             torch.zeros(width, dtype=torch.float32, device=sim.device),
-            _flatten(sim.params))
+            flatten(sim.params))
     # one real step first (its result dropped): a table a node function
     # caches at first use (ops/vsa's DFT matrices) must be cached as a
     # tensor, not as the tracer's stand-in
@@ -375,9 +376,9 @@ def _save_programs(sim: Simulator, program, args, path: str) -> dict:
         "axis_names": list(mesh.axis_names),
         "shape": [mesh.shape[a] for a in mesh.axis_names],
         "state_specs": [_spec_json(a, axis)
-                        for a in _flatten(sim._layout[0])],
+                        for a in flatten(sim._layout[0])],
         "params_specs": [_spec_json(a, axis)
-                         for a in _flatten(sim._layout[1])],
+                         for a in flatten(sim._layout[1])],
         "axis": axis,
         "programs": [e["file"] for e in entries],
         "group_name": group_name,
@@ -497,11 +498,12 @@ class ServingModel:
         self._probes = self.meta["probes"]
         self._table = torch.zeros((self.segment_steps, self.input_width),
                                   dtype=torch.float32, device=device)
-        self._bufs = [torch.zeros((self.segment_steps,) + tuple(d["shape"]),
-                                  dtype=torch.float32, device=device)
-                      for d in self._probes]
-        self._row = torch.zeros(1, dtype=torch.long, device=device)
-        self._graphs: Dict[int, "torch.cuda.CUDAGraph"] = {}
+        # the table and the buffers have segment_steps rows: one index
+        self.loop = StepLoop(
+            device, self._module, self._state, self._params,
+            {i: tuple(d["shape"]) for i, d in enumerate(self._probes)},
+            one_index=True, same_stream=self.mesh is not None)
+        self.loop.use_table(self._table)
         # subsampled probes take their thinning phase from the exported
         # step counter: a bundle saved mid-run continues the live
         # Simulator's sampling grid
@@ -552,27 +554,6 @@ class ServingModel:
         self.n_steps = n_steps
 
     # ------------------------------------------------------------------
-    def _advance(self) -> None:
-        """One step on the state tensors: the input row at the device row
-        index, the exported step, the probe values into their buffers at
-        that row, the new state copied back."""
-        x = self._table.index_select(0, self._row)[0]
-        new, emits = self._module(self._state, x, self._params)
-        for buf, e in zip(self._bufs, emits):
-            buf.index_copy_(0, self._row, e.reshape((1,) + buf.shape[1:]))
-        for dst, src in zip(self._state, new):
-            if src is not dst:
-                dst.copy_(src)
-        self._row += 1
-
-    def _graph(self, steps: int) -> "torch.cuda.CUDAGraph":
-        g = self._graphs.get(steps)
-        if g is None:
-            g = self._graphs[steps] = _capture(
-                self.device, self._state + [self._row], self._row,
-                self._advance, steps, same_stream=self.mesh is not None)
-        return g
-
     def step_segment(self, xs_packed) -> Dict[str, torch.Tensor]:
         """Advance exactly ``segment_steps`` steps.  Returns the raw emit
         dict ``{str(probe index): (segment_steps, ...) tensor}`` on the
@@ -582,19 +563,10 @@ class ServingModel:
             raise ValueError(f"xs_packed must be ({seg}, {self.input_width})"
                              f", got {tuple(xs_packed.shape)}")
         self._table.copy_(torch.as_tensor(xs_packed, dtype=torch.float32))
-        if self.device.type == "cuda":
-            self._graph(Simulator.GRAPH_STEPS)
-            if seg % Simulator.GRAPH_STEPS:
-                self._graph(1)
-            self._row.zero_()
-            _replay(self._graph, seg, Simulator.GRAPH_STEPS)
-        else:
-            self._row.zero_()
-            for _ in range(seg):
-                self._advance()
+        self.loop.run(seg)
         self.n_steps += seg
-        return {str(d["index"]): buf.clone()
-                for d, buf in zip(self._probes, self._bufs)}
+        return {str(d["index"]): self.loop.bufs[i].clone()
+                for i, d in enumerate(self._probes)}
 
     def run(self, xs_table, probes: Optional[list] = None
             ) -> Dict[str, np.ndarray]:

@@ -14,8 +14,8 @@ dt, so a tick of 10-100 steps matches the physical architecture.
         est = out[p_out][-1]
 
 On the card a tick is ONE CUDA graph of ``tick_steps`` of the Simulator's
-steps (``Simulator._graph``), captured once per tick length and replayed
-every tick.  The graph reads its input rows from a device table the
+steps (``Simulator.run_table``), captured once per tick length and
+replayed every tick.  The graph reads its input rows from a device table the
 session owns; each tick packs its rows into a pinned host buffer and
 copies them into that table before the replay, so nothing is recaptured
 per tick.  The probe rows come back to the host once per tick, which is
@@ -35,7 +35,6 @@ from typing import Dict, Optional, Sequence
 import numpy as np
 import torch
 
-from .executor import sparse_probe_value
 from .graph import Node, Probe
 
 __all__ = ["ClosedLoopSession"]
@@ -90,7 +89,7 @@ class ClosedLoopSession:
                                  "(only function-of-time / TimeTable nodes "
                                  "can be driven live)")
         self._live_ids = {id(n) for n in live}
-        self._splits = sim._input_splits()
+        self._splits = sim.input_splits
         self._nodes = list(model.input_nodes)
 
         if outputs is None:
@@ -133,22 +132,11 @@ class ClosedLoopSession:
         self._copied = torch.cuda.Event() if cuda else None
 
     # ------------------------------------------------------------------
-    def _prepare(self):
-        """Point the Simulator at the session's table and probe buffers of
-        at least one tick; returns the tick's graph on the card (captured
-        on first use), else None."""
-        sim = self.sim
-        sim._set_table(self._table)
-        sim._ensure_buffers(self.tick_steps)
-        if sim.device.type == "cuda" and not sim._eager:
-            return sim._graph(self.tick_steps)
-        return None
-
     def compile(self) -> None:
         """Capture the tick's graph outside any latency-sensitive region,
         without advancing the simulation (the capture's warm-up step is
         undone)."""
-        self._prepare()
+        self.sim.compile_table(self._table)
 
     @property
     def t(self) -> float:
@@ -179,7 +167,7 @@ class ClosedLoopSession:
                 if tabulated is None:
                     # tabulate only the nodes not driven live (a live node's
                     # build-time output may be a per-step Python callable)
-                    tabulated = sim._tabulate_inputs(
+                    tabulated = sim.tabulate_inputs(
                         seg, only={id(n) for n in self._nodes}
                         - self._live_ids)
                 xs[:, a:b] = tabulated[i]
@@ -193,7 +181,6 @@ class ClosedLoopSession:
         ``(tick_steps, size)`` array of per-dt rows.  Returns ``{probe:
         (tick_steps, d) ndarray}``; copying the rows to the host is the
         loop's synchronisation point."""
-        sim, seg = self.sim, self.tick_steps
         if self._copied is not None:
             # the previous tick's copy must have read the pinned rows
             self._copied.synchronize()
@@ -202,32 +189,6 @@ class ClosedLoopSession:
             self._table.copy_(self._rows, non_blocking=True)
             if self._copied is not None:
                 self._copied.record()
-        graph = self._prepare()
-        sim._row.zero_()
-        sim._pos.zero_()
-        if graph is not None:
-            graph.replay()
-        else:
-            for _ in range(seg):
-                sim._advance()
-        cum = sim.n_steps
-        sim.n_steps += seg
-        # a preloaded table is now misaligned with the step counter
-        sim._preloaded = None
-        sim._preloaded_dev = None
-        # sparse probes: when this tick crossed a period boundary, snapshot
-        # at the tick end and record the true step
-        for bp in sim.model.probes:
-            if bp.sparse and (cum // bp.period_steps
-                              != (cum + seg) // bp.period_steps):
-                sim._probe_data[bp.index].append(
-                    sparse_probe_value(sim.model, sim.state, bp)[None])
-                sim._sparse_steps[bp.index].append(cum + seg)
-        out = {bp.obj: sim._pbuf[bp.index][:seg].to("cpu", copy=True).numpy()
-               for bp in self._out_probes}
-        if self.record:
-            for bp in sim.model.probes:
-                if not bp.sparse and bp.period_steps == 1:
-                    sim._probe_data[bp.index].append(
-                        sim._pbuf[bp.index][:seg].clone())
-        return out
+        rows = self.sim.run_table(self._table, record=self.record)
+        return {bp.obj: rows[bp.index].to("cpu", copy=True).numpy()
+                for bp in self._out_probes}

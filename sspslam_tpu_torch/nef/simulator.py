@@ -1,34 +1,29 @@
 """Fixed-dt simulator: tabulate inputs, step the network, collect probes.
 
 Port of :mod:`sspslam_tpu.nef.simulator`.  The state lives in tensors on
-the Simulator's device that keep their addresses for its whole life; one
-step (:meth:`Simulator._advance`) reads the next input row from a table on
-the device, runs the executor's step, writes every dense probe's value into
-a device buffer and copies the new state back into the state tensors.
-The step counter, the input row and the buffer position are device tensors
-advanced inside the step, so a step needs nothing from the host.
-
-On a CUDA device the Simulator captures ``GRAPH_STEPS`` consecutive steps
-as one ``torch.cuda.CUDAGraph`` (the counterpart of the JAX package's
-jitted ``lax.scan``) and replays it; a segment whose length is not a
-multiple replays a one-step graph for the rest.  Graphs are captured after
-one warm-up step on a side stream (the state is restored afterwards), are
-kept per captured length, and are dropped when the input table, the probe
-buffers or the params object change.  On the CPU the same step runs
-eagerly, once per step.  A failed capture raises; nothing falls back.
+the Simulator's device that keep their addresses for its whole life, and
+the network is stepped through :class:`.steploop.StepLoop` (``loop``):
+one step reads the next input row from a table on the device, runs the
+executor's step, writes every dense probe's value into a device buffer and
+copies the new state back into the state tensors.  On a CUDA device a
+segment replays captured graphs of ``GRAPH_STEPS`` steps (the counterpart
+of the JAX package's jitted ``lax.scan``), then one-step graphs for the
+rest; on the CPU the same step runs eagerly, once per step.
 
 The run is split into segments, as in the JAX package, so sparse probes
 (learned-weight snapshots with a large ``sample_every``) are read from the
 state at segment boundaries, subsampled dense probes are thinned per
 segment with the global step's phase, and progress can be reported.
+:meth:`Simulator.run_table` runs the steps of a table the caller owns as
+one graph (the closed-loop tick).
 
 Spans and counters (``utils.profiling``, recorded only while tracing):
 ``sim.run_steps`` around :meth:`Simulator.run_steps`, inside it per
 segment ``sim.stage`` (the input rows or table the steps read),
-``sim.capture`` (each graph captured), ``sim.replay`` (the segment's
-replays, or its eager steps), ``sim.wait`` (a sync, made only while
-tracing) and ``sim.probes`` (the segment's probe rows kept or pulled);
-the counters ``sim.steps``, ``sim.replays`` (segments run) and
+``sim.capture`` (each graph captured, by the loop), ``sim.replay`` (the
+segment's replays, or its eager steps), ``sim.wait`` (a sync, made only
+while tracing) and ``sim.probes`` (the segment's probe rows kept or
+pulled); the counters ``sim.steps``, ``sim.replays`` (segments run) and
 ``sim.captures``.
 """
 
@@ -49,20 +44,11 @@ from .executor import (StepShard, build_params, make_step_fn,
                        sparse_probe_value, step_layout)
 from .graph import Network, Probe
 from .processes import TimeTable
+from .steploop import GRAPH_STEPS, StepLoop
+from .steploop import flatten as _flatten
+from .steploop import to_host as _host
 
 __all__ = ["Simulator"]
-
-
-def _flatten(tree) -> list:
-    """Leaves in ``jax.tree_util.tree_flatten`` order: dict keys sorted,
-    lists in order, a QTensor's payload then its scales."""
-    if isinstance(tree, dict):
-        return [leaf for k in sorted(tree) for leaf in _flatten(tree[k])]
-    if isinstance(tree, (list, tuple)):
-        return [leaf for v in tree for leaf in _flatten(v)]
-    if isinstance(tree, QTensor):
-        return [tree.q, tree.s]
-    return [tree]
 
 
 def _to_device(tree, device):
@@ -73,47 +59,6 @@ def _to_device(tree, device):
     if isinstance(tree, QTensor):
         return tree.to(device)
     return torch.as_tensor(np.array(tree)).to(device)
-
-
-def _host(x) -> np.ndarray:
-    return x.detach().cpu().numpy() if torch.is_tensor(x) else np.asarray(x)
-
-
-def _capture(device, leaves, pos, advance, steps: int,
-             same_stream: bool = False):
-    """The CUDA graph of ``steps`` consecutive ``advance()`` calls,
-    captured after one warm-up call on a side stream into buffer row 0
-    (``pos`` zeroed); ``leaves`` (the state and the device indices) are
-    restored after the warm-up.  ``same_stream``: capture on the warm-up's
-    stream (a sharded step: its NCCL communicators are warmed up on the
-    stream that captures their collectives)."""
-    saved = [x.clone() for x in leaves]
-    pos.zero_()
-    side = torch.cuda.Stream(device)
-    side.wait_stream(torch.cuda.current_stream(device))
-    with torch.cuda.stream(side):
-        advance()
-    torch.cuda.current_stream(device).wait_stream(side)
-    for x, s in zip(leaves, saved):
-        x.copy_(s)
-    g = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(g, stream=side if same_stream else None):
-        for _ in range(steps):
-            advance()
-    return g
-
-
-def _replay(graphs, seg: int, graph_steps: int) -> None:
-    """Replay ``seg`` steps: graphs of ``graph_steps`` steps, then one-step
-    graphs for the rest (``graphs(steps)`` returns, capturing on first use,
-    the graph of that many steps)."""
-    n_full, rem = divmod(seg, graph_steps)
-    g = graphs(graph_steps) if n_full else None
-    g1 = graphs(1) if rem else None
-    for _ in range(n_full):
-        g.replay()
-    for _ in range(rem):
-        g1.replay()
 
 
 class Simulator:
@@ -132,9 +77,8 @@ class Simulator:
     rank 0 writes the checkpoint file, the same file as an unsharded
     Simulator's.  ``mesh_stats()`` reports the collectives of a step."""
 
-    #: steps per captured CUDA graph: of 1, 10 and 100, 10 was the fastest
-    #: at ssp_dim 97 / 800 LIF per VCO on an H100 (PERF.md)
-    GRAPH_STEPS = 10
+    #: steps per captured CUDA graph (:data:`.steploop.GRAPH_STEPS`)
+    GRAPH_STEPS = GRAPH_STEPS
 
     #: default segment length when no sparse probe sets one
     DEFAULT_SEGMENT_STEPS = 1000
@@ -182,23 +126,24 @@ class Simulator:
         self._step_fn = make_step_fn(self.model, dtype=dtype,
                                      matmul_dtype=matmul_dtype, device=device,
                                      shard=self.shard)
-        self._params = params
         # the rank's slices of the initial state, for reset()
         self._state0 = [x.clone() for x in _flatten(state0)]
         self.state = state0
-        # the next input row and the next probe-buffer row, on the device
-        self._row = torch.zeros(1, dtype=torch.long, device=device)
-        self._pos = torch.zeros(1, dtype=torch.long, device=device)
-        self._splits = self._input_splits()
+        #: each input node's (first, last + 1) columns in the packed table
+        sizes = [n.size_out for n in self.model.input_nodes]
+        offs = np.cumsum([0] + sizes).tolist()
+        self.input_splits = list(zip(offs[:-1], offs[1:]))
         self._dense = [bp for bp in self.model.probes if not bp.sparse]
-        self._pbuf: Dict[int, torch.Tensor] = {}
-        self._table: Optional[torch.Tensor] = None   # what steps read
+        step_fn, splits = self._step_fn, self.input_splits
+
+        def step(state, x, params):
+            xs = [] if x is None else [x[a:b] for a, b in splits]
+            return step_fn(state, xs, params)
+        self.loop = StepLoop(device, step, state0, params,
+                             {bp.index: bp.shape for bp in self._dense},
+                             graph_steps=self.GRAPH_STEPS,
+                             same_stream=self.shard is not None)
         self._stage: Optional[torch.Tensor] = None   # streamed segment rows
-        self._graphs: Dict[int, torch.cuda.CUDAGraph] = {}
-        self._graph_steps = self.GRAPH_STEPS
-        # step eagerly on a CUDA device too (chip_smoke.py holds the graph
-        # replay to this)
-        self._eager = False
         self._preloaded = None       # see preload_inputs()
         self._preloaded_dev = None
         self._preload_start = 0
@@ -215,18 +160,19 @@ class Simulator:
     def params(self):
         """The parameter tree (see :func:`executor.build_params`).  Leaves
         may be changed in place; assigning a new tree drops the graphs."""
-        return self._params
+        return self.loop.params
 
     @params.setter
     def params(self, params):
-        self._params = params
-        self._graphs.clear()
+        self.loop.params = params
+        self.loop.graphs.clear()
 
     # ------------------------------------------------------------------
-    def _tabulate_inputs(self, n_steps: int, only=None) -> list:
-        """Evaluate f(t)-only nodes for every step on the host, once.
-        ``only``: a set of ``id(node)``; the other nodes' columns are None
-        (the closed-loop session tabulates the nodes it does not drive)."""
+    def tabulate_inputs(self, n_steps: int, only=None) -> list:
+        """The columns of the next ``n_steps`` steps of every input node
+        (f(t)-only nodes evaluated on the host, once).  ``only``: a set of
+        ``id(node)``; the other nodes' columns are None (the closed-loop
+        session tabulates the nodes it does not drive)."""
         cols = []
         for node in self.model.input_nodes:
             if only is not None and id(node) not in only:
@@ -253,11 +199,8 @@ class Simulator:
             cols.append(vals)
         return cols
 
-    def _input_splits(self):
-        """Static column offsets of each input node in the packed table."""
-        sizes = [n.size_out for n in self.model.input_nodes]
-        offs = np.cumsum([0] + sizes)
-        return [(int(offs[i]), int(offs[i + 1])) for i in range(len(sizes))]
+    # the JAX package's name, which the parity tests call on both packages
+    _tabulate_inputs = tabulate_inputs
 
     @staticmethod
     def _pack_cols(cols) -> np.ndarray:
@@ -273,97 +216,21 @@ class Simulator:
         segment then reads its rows there, with no host->device copy.
         Steps past the preloaded horizon repeat the last row (the device
         row index is clamped), matching :class:`TimeTable`'s clamp."""
-        self._preloaded = self._pack_cols(self._tabulate_inputs(n_steps))
+        self._preloaded = self._pack_cols(self.tabulate_inputs(n_steps))
         self._preload_start = self.n_steps
         self._preloaded_dev = None
         if device and self._preloaded.shape[1] > 0:
             self._preloaded_dev = torch.as_tensor(self._preloaded).to(
                 self.device)
 
-    def _set_table(self, table) -> None:
-        if table is not self._table:
-            self._table = table
-            self._graphs.clear()
-
     def _stage_rows(self, xs: np.ndarray) -> None:
         """Copy one segment's rows into the staging table steps read."""
         if self._stage is None or self._stage.shape[0] < xs.shape[0]:
             self._stage = torch.zeros(xs.shape, dtype=torch.float32,
                                       device=self.device)
-        self._set_table(self._stage)
+        self.loop.use_table(self._stage)
         self._stage[:xs.shape[0]].copy_(torch.from_numpy(
             np.ascontiguousarray(xs, np.float32)))
-
-    def _ensure_buffers(self, rows: int) -> None:
-        """Dense-probe device buffers of at least ``rows`` rows."""
-        if not self._dense or (
-                self._pbuf
-                and self._pbuf[self._dense[0].index].shape[0] >= rows):
-            return
-        self._pbuf = {bp.index: torch.zeros((rows,) + tuple(bp.shape),
-                                            dtype=torch.float32,
-                                            device=self.device)
-                      for bp in self._dense}
-        self._graphs.clear()
-
-    # ------------------------------------------------------------------
-    def _advance(self) -> None:
-        """One simulation step on the state tensors: the input row at the
-        device row index, the executor's step, the dense probes into their
-        buffers at the device buffer index, the new state copied back."""
-        xs = []
-        if self._splits:
-            row = torch.clamp(self._row, max=self._table.shape[0] - 1)
-            x = self._table.index_select(0, row)[0]
-            xs = [x[a:b] for a, b in self._splits]
-        new, emits = self._step_fn(self.state, xs, self._params)
-        for bp in self._dense:
-            self._pbuf[bp.index].index_copy_(
-                0, self._pos, emits[bp.index].reshape((1,) + tuple(bp.shape)))
-        for dst, src in zip(_flatten(self.state), _flatten(new)):
-            if src is not dst:
-                dst.copy_(src)
-        self._row += 1
-        self._pos += 1
-
-    def _graph(self, steps: int) -> "torch.cuda.CUDAGraph":
-        """The CUDA graph of ``steps`` consecutive :meth:`_advance` calls,
-        captured on first use after one warm-up step on a side stream; the
-        state, row and buffer indices are restored after the warm-up."""
-        g = self._graphs.get(steps)
-        if g is None:
-            with profiling.span("sim.capture"):
-                g = self._graphs[steps] = _capture(
-                    self.device, _flatten(self.state) + [self._row,
-                                                         self._pos],
-                    self._pos, self._advance, steps,
-                    same_stream=self.shard is not None)
-            profiling.count_traced("sim.captures")
-        return g
-
-    def _segment_graphs(self, seg: int) -> None:
-        """Capture the graphs a segment of ``seg`` steps replays."""
-        if seg >= self._graph_steps:
-            self._graph(self._graph_steps)
-        if seg % self._graph_steps:
-            self._graph(1)
-
-    def _run_segment(self, seg: int, start_row: int) -> None:
-        graphs = not self._eager and self.device.type == "cuda"
-        if graphs:
-            self._segment_graphs(seg)
-        self._row.fill_(start_row)
-        self._pos.zero_()
-        profiling.count_traced("sim.replays")
-        with profiling.span("sim.replay"):
-            if not graphs:
-                for _ in range(seg):
-                    self._advance()
-            else:
-                _replay(self._graph, seg, self._graph_steps)
-        if self.device.type == "cuda" and profiling.tracing_on():
-            with profiling.span("sim.wait"):
-                torch.cuda.synchronize(self.device)
 
     # ------------------------------------------------------------------
     def sync(self) -> int:
@@ -391,16 +258,14 @@ class Simulator:
             segs = [segment_steps]
             if n_steps % segment_steps:
                 segs.append(n_steps % segment_steps)
-        self._ensure_buffers(max(segs))
-        if self._splits:
+        if self.input_splits:
             if self._preloaded_dev is not None:
-                self._set_table(self._preloaded_dev)
+                self.loop.use_table(self._preloaded_dev)
             else:
-                self._stage_rows(np.zeros((max(segs), self._splits[-1][1]),
-                                          np.float32))
-        if self.device.type == "cuda" and not self._eager:
-            for seg in segs:
-                self._segment_graphs(seg)
+                self._stage_rows(np.zeros(
+                    (max(segs), self.input_splits[-1][1]), np.float32))
+        for seg in segs:
+            self.loop.prepare(seg)
 
     def _default_segment_steps(self, n_steps: int) -> int:
         sparse = [bp for bp in self.model.probes if bp.sparse]
@@ -434,7 +299,7 @@ class Simulator:
             packed = self._preloaded
             base = self.n_steps - self._preload_start
         else:
-            packed = self._pack_cols(self._tabulate_inputs(n_steps))
+            packed = self._pack_cols(self.tabulate_inputs(n_steps))
             base = 0
         dev_table = self._preloaded_dev
         sparse_periods = [bp.period_steps for bp in model.probes if bp.sparse]
@@ -455,9 +320,9 @@ class Simulator:
                 seg *= max(1, (n_steps - done) // seg)
             start_row = 0
             with profiling.span("sim.stage"):
-                if self._splits:
+                if self.input_splits:
                     if dev_table is not None:
-                        self._set_table(dev_table)
+                        self.loop.use_table(dev_table)
                         start_row = lo
                     else:
                         xs = packed[lo:lo + seg]
@@ -469,8 +334,14 @@ class Simulator:
                                 [xs, np.repeat(last, seg - xs.shape[0],
                                                axis=0)])
                         self._stage_rows(xs)
-                self._ensure_buffers(seg)
-            self._run_segment(seg, start_row)
+            self.loop.prepare(seg)
+            self.loop.start(start_row)
+            profiling.count_traced("sim.replays")
+            with profiling.span("sim.replay"):
+                self.loop.replay(seg)
+            if self.device.type == "cuda" and profiling.tracing_on():
+                with profiling.span("sim.wait"):
+                    torch.cuda.synchronize(self.device)
             with profiling.span("sim.probes"):
                 self._keep_probes(cum, seg)
             done += seg
@@ -487,24 +358,64 @@ class Simulator:
         """Keep a finished segment's probe rows: sparse probes read from
         the state at their sample steps, dense rows cloned on the device
         (thinned to their period with the global step's phase)."""
-        model = self.model
-        for bp in model.probes:
-            if bp.sparse:
-                if (cum + seg) % bp.period_steps == 0:
+        self._snapshot_sparse(cum, seg)
+        for bp in self._dense:
+            e = self.loop.bufs[bp.index][:seg]
+            if bp.period_steps > 1:
+                # row j is step cum+j+1; keep the steps that are
+                # multiples of the period (global phase)
+                phase = (bp.period_steps - 1
+                         - cum % bp.period_steps) % bp.period_steps
+                e = e[phase::bp.period_steps]
+            # kept on the device; probe_data() copies to the host
+            self._probe_data[bp.index].append(e.clone())
+
+    def _snapshot_sparse(self, cum: int, steps: int) -> None:
+        """Snapshot, from the state, every sparse probe whose sample step
+        the steps (cum, cum + steps] reached, and record the step they end
+        at (``run_steps`` ends its segments at every sample step, so that
+        step is the sample's; a longer closed-loop tick snapshots at its
+        end)."""
+        for bp in self.model.probes:
+            if bp.sparse and (cum // bp.period_steps
+                              != (cum + steps) // bp.period_steps):
+                self._probe_data[bp.index].append(
+                    sparse_probe_value(self.model, self.whole_state(),
+                                       bp)[None])
+                self._sparse_steps[bp.index].append(cum + steps)
+
+    # ------------------------------------------------------------------
+    def compile_table(self, table: torch.Tensor) -> None:
+        """Point the steps at ``table`` and capture the graph of
+        ``len(table)`` steps that :meth:`run_table` replays, without
+        advancing the simulation."""
+        self.loop.use_table(table if self.input_splits else None)
+        self.loop.prepare(table.shape[0], unit=table.shape[0])
+
+    def run_table(self, table: torch.Tensor,
+                  record: bool = False) -> Dict[int, torch.Tensor]:
+        """The closed-loop tick: ``len(table)`` steps as one graph from
+        ``table``, packed input rows on the device that the caller owns.
+        Drops a preloaded table (now misaligned) and snapshots the sparse
+        probes whose sample step it reached; ``record`` keeps the
+        full-rate dense rows.  Returns {dense probe index: (steps, ...)
+        views of the device buffers, valid until the next run}."""
+        steps = table.shape[0]
+        self.compile_table(table)
+        self.loop.start()
+        self.loop.replay(steps, unit=steps)
+        self._snapshot_sparse(self.n_steps, steps)
+        self.n_steps += steps
+        self._preloaded = None
+        self._preloaded_dev = None
+        rows = {bp.index: self.loop.bufs[bp.index][:steps]
+                for bp in self._dense}
+        if record:
+            for bp in self._dense:
+                if bp.period_steps == 1:
                     self._probe_data[bp.index].append(
-                        sparse_probe_value(model, self.whole_state(),
-                                           bp)[None])
-                    self._sparse_steps[bp.index].append(cum + seg)
-            else:
-                e = self._pbuf[bp.index][:seg]
-                if bp.period_steps > 1:
-                    # row j is step cum+j+1; keep the steps that are
-                    # multiples of the period (global phase)
-                    phase = (bp.period_steps - 1
-                             - cum % bp.period_steps) % bp.period_steps
-                    e = e[phase::bp.period_steps]
-                # kept on the device; probe_data() copies to the host
-                self._probe_data[bp.index].append(e.clone())
+                        rows[bp.index].clone())
+        return rows
 
     # ------------------------------------------------------------------
     @property
@@ -537,7 +448,7 @@ class Simulator:
         if not (keep_inputs and self._preload_start == 0):
             self._preloaded = None
             self._preloaded_dev = None
-            self._set_table(None)
+            self.loop.use_table(None)
         for k in self._probe_data:
             self._probe_data[k] = []
         for k in self._sparse_steps:

@@ -94,8 +94,8 @@ def _numel(x) -> int:
 
 
 def _bytes(tree) -> int:
-    from ..nef.simulator import _flatten
-    return int(sum(x.numel() * x.element_size() for x in _flatten(tree)
+    from ..nef.steploop import flatten
+    return int(sum(x.numel() * x.element_size() for x in flatten(tree)
                    if torch.is_tensor(x)))
 
 

@@ -34,7 +34,7 @@ import torch
 import torch.distributed as dist
 
 from ..nef.builder import Model
-from ..nef.simulator import _flatten
+from ..nef.steploop import flatten
 from ..nef.executor import (_axes_like, _ea_batch_decode_groups,
                              _elem_decode_groups, _maybe_q, _spec_for,
                              group_axis, step_layout)
@@ -351,8 +351,8 @@ def layout_differences(model: Model, params, mesh, axis: str = "model"):
     for what, mine, theirs in (
             ("state", s_axes, state_shardings(model, n)),
             ("params", p_axes, params_shardings(params, n, model=model))):
-        for path, a, b in zip(_paths(theirs, (what,)), _flatten(theirs),
-                              _flatten(mine)):
+        for path, a, b in zip(_paths(theirs, (what,)), flatten(theirs),
+                              flatten(mine)):
             if a != b:
                 out.append(("/".join(map(str, path)), a, b))
     return out
@@ -450,7 +450,7 @@ def tree_checksum(tree) -> torch.Tensor:
     its position modulo 251 plus one (a permuted or changed byte moves
     it)."""
     out = []
-    for x in _flatten(tree):
+    for x in flatten(tree):
         if not torch.is_tensor(x):
             x = torch.as_tensor(np.asarray(x))
         b = x.detach().contiguous().reshape(-1).view(torch.uint8).to(

@@ -4,12 +4,11 @@ Port of :mod:`sspslam_tpu.parallel.trials`.  B episodes of the same built
 model, each with its own input stream and its own state (neurons, filters,
 learned PES / Voja weights, node states), advance together: the executor's
 step runs under ``torch.func.vmap`` over the leading episode axis of the
-state and the inputs, with the parameters shared.  On the card U batched
-steps are captured as one CUDA graph and replayed, as the Simulator does
-for one episode: the input row and the probe-buffer row are device tensors
-advanced inside the graph, and the time-major input table (T, B, size) is
-uploaded once.  A failed vmap or capture raises; nothing falls back to a
-loop over episodes.
+state and the inputs, with the parameters shared, through the Simulator's
+step loop (:class:`..nef.steploop.StepLoop`): on the card U batched steps
+are captured as one CUDA graph and replayed, and the time-major input
+table (T, B, size) is uploaded once.  A failed vmap or capture raises;
+nothing falls back to a loop over episodes.
 
 With a mesh (:mod:`.sharding`), the episodes are split over its data
 axis: each rank runs its contiguous share of them, and the probe traces
@@ -27,7 +26,8 @@ import numpy as np
 import torch
 import torch.utils._pytree as pytree
 
-from ..nef.simulator import Simulator, _capture, _flatten, _host, _replay
+from ..nef.simulator import Simulator
+from ..nef.steploop import GRAPH_STEPS, StepLoop, to_host
 
 __all__ = ["BatchedEpisodes", "run_batched_episodes", "run_seed_sweep"]
 
@@ -40,19 +40,16 @@ class BatchedEpisodes:
     read the last row.  Every episode starts from ``sim``'s current state;
     ``sim`` itself is not changed.  ``collect=False`` writes no probe
     buffers (throughput runs).  ``graph_steps`` is the steps per captured
-    CUDA graph; ``eager = True`` steps eagerly on the card too."""
+    CUDA graph; ``loop.eager = True`` steps eagerly on the card too."""
 
     def __init__(self, sim: Simulator, tables, *,
-                 graph_steps: int = Simulator.GRAPH_STEPS,
-                 collect: bool = True):
+                 graph_steps: int = GRAPH_STEPS, collect: bool = True):
         model = sim.model
         if len(tables) != len(model.input_nodes):
             raise ValueError(f"expected {len(model.input_nodes)} input "
                              f"tables, got {len(tables)}")
         self.device = sim.device
-        self.params = sim.params
-        self._table = None
-        self._splits = []
+        table, splits = None, []
         B = 1
         if tables:
             cols = [torch.as_tensor(t).to(self.device, torch.float32)
@@ -62,82 +59,34 @@ class BatchedEpisodes:
                    for c in cols):
                 raise ValueError("input tables must share (T, B): "
                                  f"{[tuple(c.shape) for c in cols]}")
-            self._table = torch.cat(cols, 2).contiguous()
-            offs = np.cumsum([0] + [c.shape[2] for c in cols])
-            self._splits = [(int(offs[i]), int(offs[i + 1]))
-                            for i in range(len(cols))]
+            table = torch.cat(cols, 2).contiguous()
+            offs = np.cumsum([0] + [c.shape[2] for c in cols]).tolist()
+            splits = list(zip(offs[:-1], offs[1:]))
         self.B = B
         self.state = pytree.tree_map(
             lambda x: x.expand((B,) + tuple(x.shape)).clone(), sim.state)
-        self._vstep = torch.func.vmap(sim._step_fn, in_dims=(0, 0, None))
-        self._dense = ([bp for bp in model.probes if not bp.sparse]
-                       if collect else [])
-        self._pbuf: Dict[int, torch.Tensor] = {}
-        self._row = torch.zeros(1, dtype=torch.long, device=self.device)
-        self._pos = torch.zeros(1, dtype=torch.long, device=self.device)
-        self._graphs: Dict[int, torch.cuda.CUDAGraph] = {}
-        self.graph_steps = int(graph_steps)
-        self.eager = False
+        vstep = torch.func.vmap(sim._step_fn, in_dims=(0, 0, None))
+
+        def step(state, x, params):
+            xs = [] if x is None else [x[:, a:b] for a, b in splits]
+            return vstep(state, xs, params)
+        dense = [bp for bp in model.probes if not bp.sparse] if collect else []
+        self.loop = StepLoop(self.device, step, self.state, sim.params,
+                             {bp.index: (B,) + tuple(bp.shape)
+                              for bp in dense}, graph_steps=graph_steps)
+        self.loop.use_table(table)
         self.n_steps = 0
-
-    def _ensure_buffers(self, rows: int) -> None:
-        if not self._dense or (
-                self._pbuf
-                and self._pbuf[self._dense[0].index].shape[0] >= rows):
-            return
-        self._pbuf = {bp.index: torch.zeros((rows, self.B) + tuple(bp.shape),
-                                            dtype=torch.float32,
-                                            device=self.device)
-                      for bp in self._dense}
-        self._graphs.clear()
-
-    def _advance(self) -> None:
-        """One batched step: each episode's input row at the device row
-        index, the vmapped step, the dense probes into their buffers at
-        the device buffer index, the new state copied back."""
-        xs = []
-        if self._table is not None:
-            row = torch.clamp(self._row, max=self._table.shape[0] - 1)
-            x = self._table.index_select(0, row)[0]
-            xs = [x[:, a:b] for a, b in self._splits]
-        new, emits = self._vstep(self.state, xs, self.params)
-        for bp in self._dense:
-            self._pbuf[bp.index].index_copy_(
-                0, self._pos,
-                emits[bp.index].reshape((1, self.B) + tuple(bp.shape)))
-        for dst, src in zip(_flatten(self.state), _flatten(new)):
-            if src is not dst:
-                dst.copy_(src)
-        self._row += 1
-        self._pos += 1
-
-    def _graph(self, steps: int) -> "torch.cuda.CUDAGraph":
-        """The CUDA graph of ``steps`` batched steps (captured on first
-        use, as the Simulator captures its own)."""
-        g = self._graphs.get(steps)
-        if g is None:
-            g = self._graphs[steps] = _capture(
-                self.device, _flatten(self.state) + [self._row, self._pos],
-                self._pos, self._advance, steps)
-        return g
 
     def run(self, steps: int) -> Optional[Dict[int, torch.Tensor]]:
         """Advance every episode ``steps`` steps, reading table rows from
         where the last call stopped.  Returns {probe index: (steps, B, ...)}
         views of the device buffers (valid until the next call), or None
         when nothing is collected."""
-        self._ensure_buffers(steps)
-        self._row.fill_(self.n_steps)
-        self._pos.zero_()
-        if self.eager or self.device.type != "cuda":
-            for _ in range(steps):
-                self._advance()
-        else:
-            _replay(self._graph, steps, self.graph_steps)
+        self.loop.run(steps, row=self.n_steps)
         self.n_steps += steps
-        if not self._dense:
+        if not self.loop.bufs:
             return None
-        return {k: v[:steps] for k, v in self._pbuf.items()}
+        return {k: v[:steps] for k, v in self.loop.bufs.items()}
 
     def sync(self) -> int:
         """Wait for the queued steps; returns the steps run."""
@@ -147,7 +96,7 @@ class BatchedEpisodes:
 
 
 def run_batched_episodes(sim: Simulator, input_tables: List, n_steps: int,
-                         graph_steps: int = Simulator.GRAPH_STEPS, *,
+                         graph_steps: int = GRAPH_STEPS, *,
                          mesh=None, axis: str = "data",
                          model_axis: str = "model"):
     """Run B episodes of ``sim``'s model in parallel.
@@ -187,7 +136,7 @@ def run_batched_episodes(sim: Simulator, input_tables: List, n_steps: int,
         t = torch.as_tensor(np.ascontiguousarray(v)).to(sim.device)
         parts = [torch.empty_like(t) for _ in range(nd)]
         dist.all_gather(parts, t, group=group)
-        whole[obj] = _host(torch.cat(parts))
+        whole[obj] = to_host(torch.cat(parts))
     return whole, state
 
 
@@ -208,9 +157,8 @@ def _dense_out(model, traces):
 def _run_local(sim, input_tables, n_steps, graph_steps):
     tables = [torch.as_tensor(t).transpose(0, 1) for t in input_tables]
     runner = BatchedEpisodes(sim, tables, graph_steps=graph_steps)
-    bufs = runner.run(n_steps)
-    traces = {bp.index: np.swapaxes(_host(bufs[bp.index]), 0, 1)
-              for bp in runner._dense}
+    bufs = runner.run(n_steps) or {}
+    traces = {k: np.swapaxes(to_host(v), 0, 1) for k, v in bufs.items()}
     return _dense_out(sim.model, traces), runner.state
 
 
@@ -249,7 +197,7 @@ def _run_model_sharded(sim, input_tables, n_steps, mesh, model_axis):
         for bp in dense:
             traces[bp.index].append(torch.stack(rows[bp.index]))
         finals.append(state)
-    traces = {k: _host(torch.stack(v)) for k, v in traces.items()}
+    traces = {k: to_host(torch.stack(v)) for k, v in traces.items()}
     final = pytree.tree_map(lambda *xs: torch.stack(xs), *finals)
     return _dense_out(sim.model, traces), final
 

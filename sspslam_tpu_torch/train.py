@@ -137,7 +137,7 @@ def _make_episode(sim, n_steps: int, segment_steps: Optional[int],
     segments, each segment a loop over the step (under
     ``torch.func.vmap`` when batched) and, with ``remat``, one checkpoint."""
     step = sim._step_fn
-    splits = sim._input_splits()
+    splits = sim.input_splits
     width = sum(n.size_out for n in sim.model.input_nodes)
     device = sim.device
     if segment_steps is None:

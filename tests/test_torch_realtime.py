@@ -183,7 +183,9 @@ def test_sparse_probe_snapshots_when_tick_crosses_period():
     """Ticks of 30 steps against a 50-step weights period: a snapshot at
     each tick boundary that crossed a period boundary, with its true step
     (60, 120), the weights the JAX session snapshots there; a sparse probe
-    cannot be a tick output."""
+    cannot be a tick output.  Ticks of 25 steps end on the period's steps,
+    as run_steps' segments do: their snapshots are run_steps' (steps 50,
+    100, the same weights)."""
     jsim, psim, (jlive, jpw, jpd), (plive, ppw, ppd) = _pair(
         lambda nef: _pes_net(nef, 0.05))
     for sim, live, pd, cls in ((jsim, jlive, jpd, jnef.ClosedLoopSession),
@@ -198,6 +200,18 @@ def test_sparse_probe_snapshots_when_tick_crosses_period():
     assert_close(w, jsim.data[jpw], what="weights snapshots")
     with pytest.raises(ValueError, match="sparse"):
         pnef.ClosedLoopSession(psim, outputs=[ppw])
+
+    psim.reset()
+    s = pnef.ClosedLoopSession(psim, live_inputs=[plive], outputs=[ppd],
+                               tick_steps=25)
+    for _ in range(4):
+        s.tick({plive: np.zeros(1, np.float32)})
+    _, run_sim, _, (_, run_pw, _) = _pair(lambda nef: _pes_net(nef, 0.05))
+    run_sim.run_steps(100)
+    run_bp = next(p for p in run_sim.model.probes if p.obj is run_pw)
+    assert psim._sparse_steps[bp.index] == [50, 100]
+    assert run_sim._sparse_steps[run_bp.index] == [50, 100]
+    np.testing.assert_array_equal(psim.data[ppw], run_sim.data[run_pw])
 
 
 def test_warns_when_sparse_period_shorter_than_tick():

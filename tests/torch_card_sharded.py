@@ -110,7 +110,7 @@ def rank_main(rank, world, device, steps, seg, bundle, shape=None):
         live_ms.append(1e3 * (time.perf_counter() - t0))
     trace = sim.data[probe]
     out = {"trace": trace, "stats": sim.mesh_stats(),
-           "graphs": sorted(sim._graphs), "build_s": build_s,
+           "graphs": sorted(sim.loop.graphs), "build_s": build_s,
            "export_s": export_s, "live_ms": live_ms}
     label = next(d["label"] for d in _meta(bundle)["probes"]
                  if d["index"] == next(bp.index for bp in sim.model.probes
